@@ -8,28 +8,44 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. print the card (nvidia-smi name and power limit), CUDA and torch;
-2. build the ANS0 kernels (kanzi_tpu_torch/csrc/ans0.cu) with nvcc;
+2. build the kernels (kanzi_tpu_torch/csrc/*.cu, one nvcc per source,
+   all at once);
 3. build a 64 MiB mixed corpus from a fixed seed (source text, ELF
    binaries, English-like text, random, sparse alphabet, zeros, runs);
 4. run each kernel and its plain PyTorch version on the card at the main
    path's shape (4096 chunks of 16 KiB) and require bit-identical
-   results; time both (median, torch.cuda.synchronize around each run);
-5. compress and decompress the corpus through kanzi_tpu_torch's
-   container (-t NONE -e ANS0, 4 MiB blocks) with the launch counters
-   reset just before; require a round trip, output byte-identical with
-   the host path (the same container with kanzi_tpu_torch.ops disabled:
-   kanzi_tpu's native C++ coder), and every kernel launched;
-6. compress and decompress 16 MiB of it at level 5 through
-   ``python -m kanzi_tpu_torch``, byte-identical with the host path.
+   results; time both (median of CUDA-event times), the one PyTorch call
+   that computes the same function where there is one (library_ms), and
+   compute each kernel's bound from the bytes and operations of these
+   inputs;
+5. the two container paths, each with the launch counters reset just
+   before and read just after: the corpus through kanzi_tpu_torch's
+   container with -e ANS0 and with -e HUFFMAN (-t NONE, 4 MiB blocks);
+   require a round trip, output byte-identical with the host path (the
+   same container with kanzi_tpu_torch.ops disabled: the port's native
+   C++ coders), and every kernel of the path launched; then one run of
+   each Huffman direction under torch.profiler (device time by kernel
+   and copy, the device's idle share) and under cProfile (host self
+   time);
+6. round-trip 1 MiB of it through the port at every level 0-9;
+7. compress and decompress 16 MiB of it at level 5 and at the default
+   level (3, no -l) through the CLI's entry point
+   (kanzi_tpu_torch.app.cli.main, in this process, the counters reset
+   just before and read just after), on the card and then on the host
+   path: the outputs byte-identical, every kernel of the level's path
+   launched, both rates printed side by side;
+8. require that neither jax nor kanzi_tpu was imported.
 
-The second-to-last line is a JSON object with each kernel's launches in
-phase 5, its largest difference from the plain version and both times;
-the last line is {"ok": true, "device": {...}}. Without a CUDA card the
-script exits non-zero before printing either. Scratch files go to
-build/chip_smoke/.
+The second-to-last line is a JSON object with each kernel's launches on
+its main path, its largest difference from the plain version, its time,
+the plain version's, its bound and the library call's; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card the script exits
+non-zero before printing either. Scratch files go to build/chip_smoke/.
 """
 
+import cProfile
 import json
+import pstats
 import statistics
 import subprocess
 import sys
@@ -44,6 +60,21 @@ MiB = 1 << 20
 SEED = 20261016
 BLOCK = 4 * MiB
 N_CHUNKS = 4096                     # 64 MiB = one device call of the writer
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+# 32-bit scalar rate outside the tensor cores (H100 SXM data sheet, fp32);
+# the kernels' work is 32-bit integer ALU operations
+SCALAR_OPS_PER_S = 67e12
+# integer operations per symbol (per slot for the compaction), counted
+# from the kernels' inner loops
+OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
+       "huff_encode_scan": 14, "huff_decode": 8}
+REPLACES = {
+    "ans0_encode_scan": ("ans0.cu", "kanzi_tpu/ops/ans.py:120"),
+    "ans0_compact": ("ans0.cu", "kanzi_tpu/ops/ans.py:210"),
+    "ans0_decode": ("ans0.cu", "kanzi_tpu/ops/ans.py:568"),
+    "huff_encode_scan": ("huffman.cu", "kanzi_tpu/ops/ans.py:145"),
+    "huff_decode": ("huffman.cu", "kanzi_tpu/ops/huffman.py:317"),
+}
 
 
 def fail(msg: str):
@@ -102,13 +133,18 @@ def make_corpus(n: int) -> bytes:
 
 
 def median_ms(fn, runs: int) -> float:
+    """Median device time of `runs` calls, each bracketed by CUDA events
+    after one warm-up call."""
+    fn()
     times = []
     for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
-        torch.cuda.synchronize()
-        times.append(1000 * (time.perf_counter() - t0))
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -119,10 +155,62 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def check_kernels(corpus: bytes, dans, dev: torch.device) -> dict:
-    chunks = torch.frombuffer(bytearray(corpus[:N_CHUNKS * dans.CHUNK]),
-                              dtype=torch.uint8).view(N_CHUNKS, dans.CHUNK)
-    chunks = chunks.to(dev)
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(name: str, moved: int, items: int, extra_ops: int = 0) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or the
+    operations (OPS per item, plus extra_ops) over the scalar rate,
+    whichever is larger."""
+    t_bytes = 1000 * moved / HBM_BYTES_PER_S
+    t_ops = 1000 * (OPS[name] * items + extra_ops) / SCALAR_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def profile(label: str, fn) -> None:
+    """One run of fn under torch.profiler: device time by kernel and
+    copy, and the device's idle share of the run's wall time; then one
+    under cProfile: the host functions with the most self time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dev[evt.name] = dev.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy = sum(dev.values()) / 1e6
+    log(f"profile {label}: device busy {busy * 1000:.3f} ms of {wall:.4f} s "
+        f"wall, idle share {1 - busy / wall:.4f}")
+    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  device {us / 1000:9.3f} ms  {name[:90]}")
+    pr = cProfile.Profile()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    rows = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][2])
+    for (fname, line, func), (_, _, tt, ct, _) in rows[:6]:
+        log(f"  host self {tt:8.4f} s  cum {ct:8.4f} s  "
+            f"{Path(fname).name}:{line} {func}")
+
+
+def gather_ms(table, idx) -> float:
+    """library_ms of kernels A and D: torch.gather of a per-chunk
+    256-entry table at every symbol, the gather that Pallas kernels 1
+    and 2 compute alone."""
+    table = table.contiguous()
+    idx = idx.long()
+    return median_ms(lambda: torch.gather(table, 1, idx), 5)
+
+
+def check_ans0_kernels(chunks, dans) -> dict:
     freqs = dans.normalize(dans.histogram(chunks))
     packed, inv = dans.encode_tables(freqs)
     res = {}
@@ -130,23 +218,29 @@ def check_kernels(corpus: bytes, dans, dev: torch.device) -> dict:
     # A: encode scan
     got = dans.ans0_encode_scan(chunks, packed, inv)
     ref = dans.ans0_encode_scan_plain(chunks, packed, inv)
+    states, vm, nren = got
     res["ans0_encode_scan"] = dict(
         err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
         ms=median_ms(lambda: dans.ans0_encode_scan(chunks, packed, inv), 5),
         plain_ms=median_ms(
-            lambda: dans.ans0_encode_scan_plain(chunks, packed, inv), 2))
-    states, vm, nren = got
+            lambda: dans.ans0_encode_scan_plain(chunks, packed, inv), 2),
+        library_ms=gather_ms(packed, chunks),
+        **bound("ans0_encode_scan", nbytes(chunks, packed, inv, *got),
+                chunks.numel()))
 
     # B: compaction
     plen16 = nren.long().sum(1)
     off16 = plen16.cumsum(0) - plen16
     total16 = int(plen16.sum())
     flat = dans.compact_rows(vm, off16, total16)
+    flags = ((vm >> 16) & 1).bool()
     res["ans0_compact"] = dict(
         err=max_abs_err(flat, dans.compact_rows_plain(vm, off16, total16)),
         ms=median_ms(lambda: dans.compact_rows(vm, off16, total16), 5),
         plain_ms=median_ms(
-            lambda: dans.compact_rows_plain(vm, off16, total16), 3))
+            lambda: dans.compact_rows_plain(vm, off16, total16), 3),
+        library_ms=median_ms(lambda: torch.masked_select(vm, flags), 5),
+        **bound("ans0_compact", nbytes(vm, off16, flat), vm.numel()))
 
     # C: decode, of the compacted payload just produced
     f2s, fc = dans.decode_tables(freqs)
@@ -159,17 +253,86 @@ def check_kernels(corpus: bytes, dans, dev: torch.device) -> dict:
             lambda: dans.ans0_decode(f2s, fc, states, flat, off_bytes), 5),
         plain_ms=median_ms(
             lambda: dans.ans0_decode_plain(f2s, fc, states, flat, off_bytes),
-            2))
+            2),
+        library_ms=None,
+        **bound("ans0_decode",
+                nbytes(f2s, fc, states, flat, off_bytes, *got),
+                chunks.numel()))
     multi = (freqs > 0).sum(1) > 1           # single-symbol chunks: no payload
     if not torch.equal(got[0][multi], chunks[multi]):
-        fail("decode kernel does not round-trip the encoded chunks")
+        fail("ans0_decode does not round-trip the encoded chunks")
     if not torch.equal(got[1][multi].long(), 2 * plen16[multi]):
-        fail("decode kernel consumed a different payload size")
-    for name, r in res.items():
-        log(f"kernel {name}: max_abs_err {r['err']} kernel_ms {r['ms']} "
-            f"plain_ms {r['plain_ms']} (C={N_CHUNKS})")
-        if r["err"] != 0:
-            fail(f"{name} differs from its plain version")
+        fail("ans0_decode consumed a different payload size")
+    return res
+
+
+def fragments(enc) -> list:
+    """The byte-aligned fragment bitstreams of each ok chunk (its pairs,
+    then its residual bits MSB first) from the nine Huffman encode
+    outputs, as HuffmanDecoder._read_fragments reads them."""
+    _, _, ok, _, flat, npairs, acc, nb, _ = enc
+    out, base = [], 0
+    for ci in range(len(ok)):
+        for f in range(4):
+            k = int(npairs[ci, f])
+            raw = flat[2 * base:2 * (base + k)].tobytes()
+            base += k
+            r = int(nb[ci, f])
+            if ok[ci] and r:
+                v = (int(acc[ci, f]) & ((1 << r) - 1)) << (16 - r)
+                raw += v.to_bytes(2, "big")[:(r + 7) // 8]
+            if ok[ci]:
+                out.append(raw)
+    return out
+
+
+def check_huffman_kernels(chunks, dhuff) -> tuple:
+    hist = dhuff.histogram(chunks)
+    tables_ms = median_ms(lambda: dhuff.compute_code_tables(hist), 3)
+    res = {}
+
+    # D: code tables, then the encode scan
+    got = dhuff.huff_encode_scan(chunks, hist)
+    ref = dhuff.huff_encode_scan_plain(chunks, hist)
+    codes, sizes, _, m, ok = got[:5]
+    # the prologue's loops: 256 rank compares and up to 128 same-length
+    # compares per symbol slot (3 operations each), ~20 per tree node
+    c = chunks.shape[0]
+    prologue_ops = 3 * 384 * 256 * c + 20 * int(m.long().sum())
+    res["huff_encode_scan"] = dict(
+        err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        ms=median_ms(lambda: dhuff.huff_encode_scan(chunks, hist), 5),
+        plain_ms=median_ms(
+            lambda: dhuff.huff_encode_scan_plain(chunks, hist), 2),
+        library_ms=gather_ms(codes, chunks),
+        **bound("huff_encode_scan", nbytes(chunks, hist, *got),
+                chunks.numel(), prologue_ops))
+
+    # E: decode of the same chunks' fragments
+    enc = dhuff.encode_chunks_np(chunks.cpu().numpy(), chunks.device)
+    parts = fragments(enc)
+    sel = torch.from_numpy(np.nonzero(enc[2])[0]).to(chunks.device)
+    dev = chunks.device
+    pay = torch.from_numpy(np.frombuffer(b"".join(parts), np.uint8).copy()
+                           ).to(dev)
+    bounds = torch.from_numpy(np.cumsum(
+        [0] + [len(p) for p in parts], dtype=np.int64)).to(dev)
+    tbl = dhuff.decode_table(codes[sel] & 0xFFF, sizes[sel])
+    got = dhuff.huff_decode(tbl, pay, bounds)
+    ref = dhuff.huff_decode_plain(tbl, pay, bounds)
+    res["huff_decode"] = dict(
+        err=max_abs_err(got, ref),
+        ms=median_ms(lambda: dhuff.huff_decode(tbl, pay, bounds), 5),
+        plain_ms=median_ms(
+            lambda: dhuff.huff_decode_plain(tbl, pay, bounds), 2),
+        library_ms=None,
+        **bound("huff_decode", nbytes(tbl, pay, bounds, got), got.numel()))
+    if not torch.equal(got, chunks[sel]):
+        fail("huff_decode does not round-trip the encoded chunks")
+    log(f"huffman: {int(ok.sum())} of {len(ok)} chunks coded on the card "
+        f"(the rest: alphabet of one symbol or a code over 12 bits); code "
+        f"tables alone in plain torch (compute_code_tables, {len(ok)} "
+        f"chunks, median): {tables_ms} ms")
     return res
 
 
@@ -180,9 +343,12 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
+    from kanzi_tpu_torch.app.cli import LEVEL_TABLE
+    from kanzi_tpu_torch.app.cli import main as cli_main
     from kanzi_tpu_torch.ops import _build
     from kanzi_tpu_torch.ops import ans as dans
-    from kanzi_tpu_torch.transform import factory as tfactory
+    from kanzi_tpu_torch.ops import huffman as dhuff
+    from kanzi_tpu_torch.utils import native
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -194,20 +360,33 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.load()
-    log(f"build: {so.name} in {time.perf_counter() - t0:.3f} s")
-    log(so.with_suffix(".log").read_text().strip())
+    libs = _build.build()
+    _build.kernel("ans0_decode")
+    log(f"build: {', '.join(so.name for so in libs)} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for so in libs:
+        log(so.with_suffix(".log").read_text().strip())
 
     # 3. corpus
     corpus = make_corpus(N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
 
     # 4. kernels against their plain versions at the main path's shape
-    kres = check_kernels(corpus, dans, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    chunks = torch.frombuffer(bytearray(corpus), dtype=torch.uint8).view(
+        N_CHUNKS, dans.CHUNK).to(dev)
+    kres = check_ans0_kernels(chunks, dans)
+    kres.update(check_huffman_kernels(chunks, dhuff))
+    del chunks
+    for k, r in kres.items():
+        log(f"kernel {k}: max_abs_err {r['err']} kernel_ms {r['ms']} "
+            f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
+            f"bound_ms {r['bound_ms']} ({r['bound_by']}) (C={N_CHUNKS})")
+        if r["err"] != 0:
+            fail(f"{k} differs from its plain version")
 
-    # 5. the container on the card. An untimed pass over one block first
-    # builds kanzi_tpu's native host libraries (g++, at first use).
+    # 5. the main paths on the card. An untimed pass over one block of
+    # each first builds the native host libraries (g++, at first use).
     def timed(fn, *args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -218,78 +397,132 @@ def main() -> None:
     def rate(seconds):
         return f"{len(corpus) / MiB / seconds:.1f} MiB/s"
 
-    warm = kanzi_tpu_torch.compress_bytes(corpus[:BLOCK], "NONE", "ANS0",
-                                          block_size=BLOCK)
-    kanzi_tpu_torch.decompress_bytes(warm)
-    ops.reset_counters()
-    blob, t_enc = timed(kanzi_tpu_torch.compress_bytes, corpus, "NONE",
-                        "ANS0", block_size=BLOCK)
-    back, t_dec = timed(kanzi_tpu_torch.decompress_bytes, blob)
-    launches = dict(ops.COUNTERS)
-    log(f"container NONE/ANS0 on the card: {len(corpus)} -> {len(blob)} "
-        f"bytes, encode {rate(t_enc)} ({t_enc:.3f} s), decode "
-        f"{rate(t_dec)} ({t_dec:.3f} s), launches {launches}")
-    if back != corpus:
-        fail("container round trip differs from the input")
-    for k in kres:
-        if launches.get(k, 0) < 1:
-            fail(f"kernel {k} was not launched by the container")
+    for entropy in ("ANS0", "HUFFMAN"):
+        warm = kanzi_tpu_torch.compress_bytes(corpus[:BLOCK], "NONE",
+                                              entropy, block_size=BLOCK)
+        kanzi_tpu_torch.decompress_bytes(warm)
+    launches = {}
+    for entropy, path in (("ANS0", ("ans0_encode_scan", "ans0_compact",
+                                    "ans0_decode")),
+                          ("HUFFMAN", ("huff_encode_scan", "ans0_compact",
+                                       "huff_decode"))):
+        ops.reset_counters()
+        blob, t_enc = timed(kanzi_tpu_torch.compress_bytes, corpus, "NONE",
+                            entropy, block_size=BLOCK)
+        back, t_dec = timed(kanzi_tpu_torch.decompress_bytes, blob)
+        counts = dict(ops.COUNTERS)
+        log(f"container NONE/{entropy} on the card: {len(corpus)} -> "
+            f"{len(blob)} bytes, encode {rate(t_enc)} ({t_enc:.3f} s), "
+            f"decode {rate(t_dec)} ({t_dec:.3f} s), launches {counts}")
+        if back != corpus:
+            fail(f"NONE/{entropy} round trip differs from the input")
+        for k in path:
+            if counts.get(k, 0) < 1:
+                fail(f"kernel {k} was not launched by the NONE/{entropy} "
+                     "container")
+            launches[k] = launches.get(k, 0) + counts[k]
+        ops.disable()
+        try:
+            host, t_henc = timed(kanzi_tpu_torch.compress_bytes, corpus,
+                                 "NONE", entropy, block_size=BLOCK)
+            _, t_hdec = timed(kanzi_tpu_torch.decompress_bytes, host)
+        finally:
+            ops.enable()
+        log(f"container NONE/{entropy} host path (native C++, one "
+            f"thread): encode {rate(t_henc)}, decode {rate(t_hdec)}")
+        if blob != host:
+            fail(f"NONE/{entropy} output differs from the host path's")
+    profile("NONE/HUFFMAN encode", lambda: kanzi_tpu_torch.compress_bytes(
+        corpus, "NONE", "HUFFMAN", block_size=BLOCK))
+    profile("NONE/HUFFMAN decode",
+            lambda: kanzi_tpu_torch.decompress_bytes(blob))
     chunks_np = np.frombuffer(corpus, np.uint8).reshape(-1, dans.CHUNK)
-    _, t_stage = timed(dans.encode_chunks_np, chunks_np, "cuda")
-    log(f"device encode stage (encode_chunks_np, {len(chunks_np)} chunks, "
-        f"host->device copy and back included): {t_stage:.3f} s, "
-        f"{rate(t_stage)}")
-    ops.disable()
-    try:
-        host, t_henc = timed(kanzi_tpu_torch.compress_bytes, corpus, "NONE",
-                             "ANS0", block_size=BLOCK)
-        _, t_hdec = timed(kanzi_tpu_torch.decompress_bytes, host)
-    finally:
-        ops.enable()
-    log(f"container NONE/ANS0 host path (native C++, one thread): encode "
-        f"{rate(t_henc)}, decode {rate(t_hdec)}")
-    if blob != host:
-        fail("container output differs from the host path's")
+    for mod in (dans, dhuff):
+        _, t_stage = timed(mod.encode_chunks_np, chunks_np, "cuda")
+        log(f"device encode stage ({mod.__name__}.encode_chunks_np, "
+            f"{len(chunks_np)} chunks, host->device copy and back "
+            f"included): {t_stage:.3f} s, {rate(t_stage)}")
 
-    # 6. level 5 through the CLI
-    log(f"native SA-IS available: {tfactory.native.sais_available()}")
+    # 6. every level through the port (this also builds every native
+    # host library before the CLI's timed runs)
+    data = corpus[:MiB]
+    for level in range(10):
+        t0 = time.perf_counter()
+        blob = kanzi_tpu_torch.compress_bytes(data, *LEVEL_TABLE[level],
+                                              block_size=MiB)
+        if kanzi_tpu_torch.decompress_bytes(blob) != data:
+            fail(f"level {level} round trip differs from the input")
+        log(f"level {level} round trip: {len(data)} -> {len(blob)} bytes in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    # 7. level 5 and the default level through the CLI's entry point
+    log(f"native SA-IS available: {native.sais_available()}")
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    src, knz, dec = (work / "l5.bin", work / "l5.knz", work / "l5.out")
     data = corpus[:16 * MiB]
+    src = work / "in.bin"
     src.write_bytes(data)
-    times = {}
-    for mode, a, b in (("-c", src, knz), ("-d", knz, dec)):
-        cmd = [sys.executable, "-m", "kanzi_tpu_torch", mode, "-f", "-i",
-               str(a), "-o", str(b)] + (["-l", "5"] if mode == "-c" else [])
+
+    def cli(*argv) -> float:
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
-        times[mode] = time.perf_counter() - t0
-        if r.returncode != 0:
-            fail(f"{' '.join(cmd)} exited {r.returncode}: {r.stderr}")
-    if dec.read_bytes() != data:
-        fail("level-5 CLI round trip differs from the input")
-    ops.disable()
-    try:
-        host5 = kanzi_tpu_torch.compress_bytes(
-            data, "TEXT+UTF+BWT+RANK+ZRLT", "ANS0", block_size=BLOCK)
-    finally:
-        ops.enable()
-    if knz.read_bytes() != host5:
-        fail("level-5 CLI output differs from the host path's")
-    log(f"level 5 CLI: {len(data)} -> {len(host5)} bytes, compress "
-        f"{times['-c']:.2f} s, decompress {times['-d']:.2f} s (process "
-        "start and kernel load included)")
+        rc = cli_main(["-f", *map(str, argv)])
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"kanzi_tpu_torch {' '.join(map(str, argv))} exited {rc}")
+        return time.perf_counter() - t0
+
+    for level, flags, path in (
+            (5, ["-l", "5"], ("ans0_encode_scan", "ans0_compact",
+                              "ans0_decode")),
+            (3, [], ("huff_encode_scan", "ans0_compact", "huff_decode"))):
+        mib = {}
+        for where in ("card", "host"):
+            knz, dec = work / f"l{level}_{where}.knz", work / f"l{level}.out"
+            if where == "host":
+                ops.disable()
+            ops.reset_counters()
+            try:
+                t_c = cli("-c", "-i", src, "-o", knz, *flags)
+                t_d = cli("-d", "-i", knz, "-o", dec)
+            finally:
+                ops.enable()
+            counts = dict(ops.COUNTERS)
+            if dec.read_bytes() != data:
+                fail(f"level-{level} CLI round trip ({where}) differs from "
+                     "the input")
+            mib[where] = (len(data) / MiB / t_c, len(data) / MiB / t_d)
+            if where == "card":
+                for k in path:
+                    if counts.get(k, 0) < 1:
+                        fail(f"kernel {k} was not launched by the level-"
+                             f"{level} CLI")
+                    launches[k] += counts[k]
+                log(f"level {level} CLI ({' '.join(flags) or 'no -l'}) on "
+                    f"the card: launches {counts}")
+            elif counts:
+                fail(f"the host path launched {counts}")
+        knz = work / f"l{level}_card.knz"
+        if knz.read_bytes() != (work / f"l{level}_host.knz").read_bytes():
+            fail(f"level-{level} CLI output differs from the host path's")
+        log(f"level {level} CLI: {len(data)} -> {knz.stat().st_size} bytes, "
+            f"compress {mib['card'][0]:.1f} MiB/s (host path "
+            f"{mib['host'][0]:.1f}), decompress {mib['card'][1]:.1f} MiB/s "
+            f"(host path {mib['host'][1]:.1f})")
+
+    # 8. no JAX, nothing of the JAX package
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
+    if foreign:
+        fail(f"imported {foreign}")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
-         "source": "kanzi_tpu_torch/csrc/ans0.cu",
-         "replaces": rep, "launches": launches[k],
-         "max_abs_err": kres[k]["err"], "ms": kres[k]["ms"],
-         "plain_ms": kres[k]["plain_ms"]}
-        for k, rep in (("ans0_encode_scan", "kanzi_tpu/ops/ans.py:120"),
-                       ("ans0_compact", "kanzi_tpu/ops/ans.py:210"),
-                       ("ans0_decode", "kanzi_tpu/ops/ans.py:568"))]}))
+         "source": f"kanzi_tpu_torch/csrc/{src_name}", "replaces": rep,
+         "launches": launches[k], "max_abs_err": kres[k]["err"],
+         "ms": kres[k]["ms"], "plain_ms": kres[k]["plain_ms"],
+         "bound_ms": kres[k]["bound_ms"], "bound_by": kres[k]["bound_by"],
+         "library_ms": kres[k]["library_ms"]}
+        for k, (src_name, rep) in REPLACES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

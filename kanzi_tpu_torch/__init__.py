@@ -2,22 +2,21 @@
 
 Writes and reads the same Kanzi bitstream (format 6) as kanzi_tpu and the
 reference kanzi binary, byte for byte. The host side (framing, headers,
-transforms, host entropy coders) is kanzi_tpu's jax-free code; what ran
+transforms, host entropy coders, the native C++ runtime loader) is this
+package's own copy of kanzi_tpu's, under the same module paths; what ran
 on the TPU runs here as hand-written CUDA kernels (kanzi_tpu_torch/csrc)
-behind PyTorch. This package never imports JAX.
+behind PyTorch. This package imports neither JAX nor kanzi_tpu.
 
-Ported so far: the ANS0 entropy stage (levels 0 and 4-9 and ``-e ANS0``).
-HUFFMAN, ANS1 and the LZ/LZX transforms raise NotImplementedError (see
-ROADMAP.md).
+Ported so far: the ANS0 and HUFFMAN entropy stages, so every level 0-9
+and every entropy name but ANS1 runs (see ROADMAP.md).
 """
 
-from kanzi_tpu import (  # noqa: F401
-    BITSTREAM_FORMAT_VERSION,
-    MAGIC,
-    __version__,
-)
+__version__ = "0.1.0"
 
-from kanzi_tpu_torch.io.compressed_stream import (  # noqa: F401
+BITSTREAM_FORMAT_VERSION = 6  # reference: src/io/CompressedOutputStream.cpp:32
+MAGIC = 0x4B414E5A            # "KANZ", reference: src/io/CompressedOutputStream.cpp:31
+
+from kanzi_tpu_torch.io.compressed_stream import (  # noqa: E402,F401
     CompressedReader,
     CompressedWriter,
     compress_bytes,

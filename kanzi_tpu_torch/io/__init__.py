@@ -1,1 +1,8 @@
-"""Block container of the port."""
+from kanzi_tpu_torch.io.compressed_stream import (
+    CompressedWriter,
+    CompressedReader,
+    compress_bytes,
+    decompress_bytes,
+)
+
+__all__ = ["CompressedWriter", "CompressedReader", "compress_bytes", "decompress_bytes"]

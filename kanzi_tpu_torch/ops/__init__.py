@@ -9,6 +9,7 @@ and hand tensors down.
 
 Layout:
 - ops.ans      interleaved 4-lane rANS order-0 chunk encode/decode
+- ops.huffman  4-fragment canonical Huffman chunk encode/decode
 - ops._build   nvcc build + ctypes binding of csrc/*.cu
 """
 

@@ -1,10 +1,11 @@
 """Build kanzi_tpu_torch/csrc/*.cu with nvcc for sm_90a and bind the
-shared library with ctypes.
+shared libraries with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so nvcc
-builds them in seconds. The library lands in the repository's
+Each source has a plain C interface (no PyTorch headers), so nvcc builds
+it in seconds; every source is its own library, and the nvcc processes
+of all sources run at once. A library lands in the repository's
 git-ignored ``build/kanzi_tpu_torch/`` under a name that carries a hash
-of the sources and flags: a changed source builds a new library, an
+of its source and the flags: a changed source builds a new library, an
 unchanged one is reused. ptxas's register and shared-memory report is
 kept beside it as ``<name>.log``. A failed build raises with nvcc's
 stderr; nothing falls back.
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -32,17 +34,27 @@ _L = ctypes.c_int64
 # every launcher returns cudaGetLastError() after its launch; pointers
 # and the stream go as c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    # chunks, packed, inv, n_chunks, states, vm, nren, device, stream
-    "ans0_encode_scan": [_P, _P, _P, _I, _P, _P, _P, _I, _P],
-    # vm, off16, n_rows, total16, out, device, stream
-    "ans0_compact": [_P, _P, _I, _L, _P, _I, _P],
-    # f2s, fc, states, pay, n_pay, off_bytes, n_chunks, out, consumed,
-    # device, stream
-    "ans0_decode": [_P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _P],
+    "ans0.cu": {
+        # chunks, packed, inv, n_chunks, states, vm, nren, device, stream
+        "ans0_encode_scan": [_P, _P, _P, _I, _P, _P, _P, _I, _P],
+        # vm, off16, n_rows, total16, out, device, stream
+        "ans0_compact": [_P, _P, _I, _L, _P, _I, _P],
+        # f2s, fc, states, pay, n_pay, off_bytes, n_chunks, out, consumed,
+        # device, stream
+        "ans0_decode": [_P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _P],
+    },
+    "huffman.cu": {
+        # chunks, hist, n_chunks, codes, sizes, maxlen, m, ok, vm, acc, nb,
+        # npairs, device, stream
+        "huff_encode_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _P],
+        # tbl, pay, n_pay, bounds, n_chunks, out, device, stream
+        "huff_decode": [_P, _P, _L, _P, _I, _P, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
-_lib = None
+_kernels = {}   # launcher name -> (ctypes function, its library)
 
 
 def _nvcc() -> str:
@@ -56,24 +68,22 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(source: str) -> Path:
+    """Where the library of one csrc/ source lives (built or not)."""
+    src = CSRC / source
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libkanzi_tpu_torch_{h.hexdigest()[:16]}.so"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"libkanzi_tpu_torch_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless a library for these sources exists."""
-    so = _library_path()
+def _build_one(source: str) -> Path:
+    so = library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {r.returncode}: "
@@ -83,17 +93,25 @@ def build() -> Path:
     return so
 
 
-def load() -> ctypes.CDLL:
-    """Build on first use and bind every launcher's argtypes."""
-    global _lib
+def build() -> list:
+    """Compile every csrc/ source that has no library yet, all nvcc
+    processes at once. Returns the library paths in SIGNATURES order."""
+    with ThreadPoolExecutor(len(SIGNATURES)) as ex:
+        return list(ex.map(_build_one, SIGNATURES))
+
+
+def kernel(name: str):
+    """The ctypes launcher `name` and its library, building and binding
+    every library on first use."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.kanzi_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.kanzi_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        if not _kernels:
+            for source, so in zip(SIGNATURES, build()):
+                lib = ctypes.CDLL(str(so))
+                lib.kanzi_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.kanzi_cuda_error_string.restype = ctypes.c_char_p
+                for fname, argtypes in SIGNATURES[source].items():
+                    fn = getattr(lib, fname)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    _kernels[fname] = (fn, lib)
+        return _kernels[name]

@@ -46,8 +46,9 @@ _U32 = 0xFFFFFFFF
 
 def from_numpy(arrays, device) -> tuple:
     """kanzi_tpu's numpy results (e.g. of ``encode_chunks_np`` or
-    ``ans0_encode_chunks_padded``) as tensors on ``device``; uint32
-    arrays widen to int64."""
+    ``ans0_encode_chunks_padded`` here, of ``compute_code_tables`` or
+    ``encode_chunks_np`` in kanzi_tpu.ops.huffman) as tensors on
+    ``device``; uint32 arrays widen to int64."""
     return tuple(_host_tensor(a, np.int64 if a.dtype == np.uint32
                               else a.dtype).to(device)
                  for a in map(np.asarray, arrays))
@@ -168,11 +169,11 @@ def _on_cpu(kernel: str, device: torch.device) -> bool:
 def _launch(kernel: str, device: torch.device, *args) -> None:
     """Call the kernel's C launcher on the current stream; raise on any
     launch error."""
-    lib = _build.load()
+    fn, lib = _build.kernel(kernel)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, kernel)(*conv, device.index, stream)
+    rc = fn(*conv, device.index, stream)
     if rc != 0:
         msg = lib.kanzi_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({rc})")

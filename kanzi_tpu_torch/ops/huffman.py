@@ -1,0 +1,393 @@
+"""Batched canonical-Huffman chunk encode/decode on a CUDA device.
+
+The PyTorch counterpart of kanzi_tpu/ops/huffman.py, bit-exact with it
+and with the host coder (src/entropy/Huffman{Common,Encoder,Decoder}.cpp)
+for full 16 KiB chunks. A chunk splits into 4 fragments of 4096 symbols
+(HuffmanEncoder.cpp:348-421), each its own MSB-first bitstream; the 4
+fragments are the 4 lanes of every scan here.
+
+Plain PyTorch does what the JAX package left to XLA: the header bit
+packing and the decode tables, and, as the plain half of kernel D, the
+code tables (the reference's in-place Moffat-Katajainen construction,
+HuffmanEncoder.cpp:246-300, batched over chunks, and the canonical
+codes). Two hand-written CUDA kernels (csrc/huffman.cu) do the rest,
+each behind a wrapper with a plain PyTorch version beside it:
+
+- ``huff_encode_scan``: the code tables of each chunk from its histogram
+  (a prologue kernel, one block per chunk), then the 4-fragment
+  bit-packing scan with the chunk's code table in shared memory (Pallas
+  ``_gather_kernel1`` + the ``lax.scan``).
+- ``huff_decode``: the 4-fragment decode through a direct 12-bit prefix
+  table in shared memory (Pallas ``_huff_decode_kernel``).
+
+The emitted 16-bit pairs are packed into one flat payload by
+kanzi_tpu_torch.ops.ans.compact_rows (kernel B). Chunks with an alphabet
+of at most one symbol, or a code longer than MAX_SYMBOL_SIZE bits, are
+not encoded here (ok is false): the host codes them, with the exact
+bit-debt length limiting for the latter.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kanzi_tpu_torch.ops.ans import (_U32, _bit_length, _check, _host_tensor,
+                                     _launch, _on_cpu, _u32_bits, compact_rows,
+                                     histogram, pack_slots)
+
+CHUNK = 16384
+FRAG = CHUNK // 4
+MAX_SYMBOL_SIZE = 12
+TABLE = 1 << MAX_SYMBOL_SIZE
+FRAG_MAX_BYTES = MAX_SYMBOL_SIZE * FRAG // 8   # 4096 codes of <= 12 bits
+
+
+# ---------------------------------------------------------------------------
+# code tables (plain torch)
+# ---------------------------------------------------------------------------
+
+def _code_lengths(fbr: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Moffat-Katajainen code lengths batched over chunks: the port of
+    kanzi_tpu.ops.huffman._code_lengths_one. fbr [C, 256] frequencies by
+    rank, ascending (entries >= n arbitrary); n [C] alphabet sizes.
+    Returns lengths by rank [C, 256] (valid for ranks < n, n >= 2)."""
+    c, dev = fbr.shape[0], fbr.device
+    data = fbr.clone()
+    s = torch.zeros(c, dtype=torch.int64, device=dev)
+    r = torch.zeros_like(s)
+    # phase 1: in-place tree build; step t is live while t < n - 1
+    for t in range(max(int(n.max()) - 1, 0) if c else 0):
+        d, ss, rr = data, s, r
+        total = torch.zeros_like(s)
+        for _ in range(2):
+            dr = d.gather(1, rr.clamp(max=255)[:, None])[:, 0]
+            ds = d.gather(1, ss.clamp(max=255)[:, None])[:, 0]
+            use_r = (ss >= n) | ((rr < t) & (dr < ds))
+            total = total + torch.where(use_r, dr, ds)
+            idx = torch.where(use_r, rr, ss).clamp(max=255)[:, None]
+            cur = d.gather(1, idx)[:, 0]
+            new = torch.where(use_r, t, torch.where(ss > t, 0, cur))
+            d = d.scatter(1, idx, new[:, None])
+            rr = rr + use_r.long()
+            ss = ss + (~use_r).long()
+        d = d.clone()
+        d[:, t] = total
+        live = t < n - 1
+        data = torch.where(live[:, None], d, data)
+        s = torch.where(live, ss, s)
+        r = torch.where(live, rr, r)
+
+    # phase 2: internal-node depths -> leaf code lengths (in reverse)
+    idx = torch.arange(256, device=dev)[None, :]
+    nn, top = n.clone(), n - 2
+    depth = torch.ones_like(s)
+    nal = torch.full_like(s, 2)
+    for _ in range(64):
+        active = nn > 0
+        if not bool(active.any()):
+            break
+        mask = (idx < top[:, None]) & (data < top[:, None])
+        k = torch.where(mask, idx + 1, 0).amax(1)
+        internal = top - k
+        newn = nn - torch.where(active, nal - internal, 0)
+        fill = active[:, None] & (idx >= newn[:, None]) & (idx < nn[:, None])
+        data = torch.where(fill, depth[:, None], data)
+        nn = newn
+        top = torch.where(active, k, top)
+        depth = depth + active.long()
+        nal = torch.where(active, 2 * internal, nal)
+    return data
+
+
+def compute_code_tables(hist: torch.Tensor):
+    """hist [C, 256] -> (codes [C, 256] int64 packed len<<12 | code,
+    sizes [C, 256], maxlen [C], m [C]), all int64; the contract of
+    kanzi_tpu.ops.huffman.compute_code_tables.
+
+    Valid when m > 1 and maxlen <= 12; other chunks take the host path.
+    The canonical codes come from the per-length counting construction,
+    which matches the reference's (size, symbol)-sorted walk
+    (HuffmanCommon.cpp:29-70)."""
+    c, dev = hist.shape[0], hist.device
+    f = hist.long()
+    present = f > 0
+    m = present.sum(1)
+    syms = torch.arange(256, device=dev)[None, :]
+    key = torch.where(present, (f << 8) | syms, 2 ** 31 - 1).sort(1).values
+    fbr, sbr = key >> 8, key & 0xFF
+    lens = _code_lengths(fbr, m)
+    valid_rank = syms < m[:, None]
+    maxlen = torch.where(valid_rank, lens, 0).amax(1)
+    sizes = torch.zeros((c, 257), dtype=torch.int64, device=dev).scatter_(
+        1, torch.where(valid_rank, sbr, 256), lens)[:, :256]
+
+    ln = sizes.clamp(max=MAX_SYMBOL_SIZE + 1)
+    counts = torch.zeros((c, MAX_SYMBOL_SIZE + 2), dtype=torch.int64,
+                         device=dev).scatter_add_(
+        1, torch.where(present, ln, MAX_SYMBOL_SIZE + 1),
+        torch.ones_like(ln))
+    # first_code[l] = (first_code[l-1] + counts[l-1]) << 1
+    first = [torch.zeros_like(m)]
+    for lv in range(MAX_SYMBOL_SIZE + 1):
+        first.append((first[-1] + counts[:, lv]) << 1)
+    first_code = torch.stack(first, 1)
+    # rank among the symbols of the same length, in symbol order
+    same_len_rank = torch.zeros_like(sizes)
+    for lv in range(1, MAX_SYMBOL_SIZE + 1):
+        is_l = (present & (ln == lv)).long()
+        same_len_rank = torch.where(is_l.bool(), is_l.cumsum(1) - is_l,
+                                    same_len_rank)
+    codes = first_code.gather(1, ln) + same_len_rank
+    packed = torch.where(present, ((ln << 12) | codes) & _U32, 0)
+    return packed, sizes, maxlen, m
+
+
+# ---------------------------------------------------------------------------
+# D. encode scan
+# ---------------------------------------------------------------------------
+
+def _scan_plain(chunks, codes, ok):
+    """The 4-fragment scan as a Python loop over the 4096 steps on [C, 4]
+    tensors. Shifts by 32 bits or more give 0, as XLA's do (only codes of
+    not-ok chunks reach such lengths)."""
+    c = chunks.shape[0]
+    x = codes.long().gather(1, chunks.long()).view(c, 4, FRAG)
+    code = (x & 0xFFF).unbind(2)
+    ln = (x >> 12).unbind(2)
+    acc = torch.zeros((c, 4), dtype=torch.int64, device=chunks.device)
+    nb = torch.zeros_like(acc)
+    npairs = torch.zeros_like(acc)
+    slots = torch.empty((c, 4, FRAG), dtype=torch.int64,
+                        device=chunks.device)
+    for t in range(FRAG):
+        acc = ((acc << ln[t].clamp(max=32)) & _U32) | code[t]
+        nb = nb + ln[t]
+        flag = nb >= 16
+        sh = (nb - 16).clamp(min=0, max=32)
+        out16 = (acc >> sh) & 0xFFFF
+        keep = torch.where(sh >= 32, _U32, (1 << sh.clamp(max=31)) - 1)
+        acc = torch.where(flag, acc & keep, acc)
+        nb = torch.where(flag, nb - 16, nb)
+        npairs += flag.long()
+        slots[:, :, t] = ((flag.long() << 16) | ((out16 & 0xFF) << 8)
+                          | (out16 >> 8))
+    vm = torch.where(ok[:, None, None], slots, 0).view(c, CHUNK)
+    npairs = torch.where(ok[:, None], npairs, 0)
+    return (vm.to(torch.int32), _u32_bits(acc), nb.to(torch.int32),
+            npairs.to(torch.int32))
+
+
+def huff_encode_scan_plain(chunks, hist):
+    """Plain version of the huff_encode_scan kernel: compute_code_tables,
+    then the scan (_scan_plain)."""
+    codes, sizes, maxlen, m = compute_code_tables(hist)
+    ok = (m > 1) & (maxlen <= MAX_SYMBOL_SIZE)
+    codes = codes.to(torch.int32)
+    return (codes, sizes.to(torch.int32), maxlen.to(torch.int32),
+            m.to(torch.int32), ok, *_scan_plain(chunks, codes, ok))
+
+
+def huff_encode_scan(chunks, hist):
+    """chunks [C, CHUNK] uint8; hist [C, 256] int64 their byte counts
+    (histogram).
+
+    Returns (codes [C, 256] int32 packed len<<12 | code, sizes [C, 256],
+    maxlen [C] and m [C] int32: compute_code_tables's; ok [C] bool, the
+    chunks coded here (m > 1, maxlen <= 12); vm [C, CHUNK] int32 slots
+    flag<<16 | lo<<8 | hi of the 16-bit pair emitted at each step,
+    fragment-major, zero for not-ok rows; acc [C, 4] int32 (u32 bits) and
+    nb [C, 4] int32, the bits left in each fragment's accumulator; npairs
+    [C, 4] int32 pairs per fragment, zero for not-ok rows)."""
+    c, dev = chunks.shape[0], chunks.device
+    _check("chunks", chunks, torch.uint8, (c, CHUNK), dev)
+    _check("hist", hist, torch.int64, (c, 256), dev)
+    if _on_cpu("huff_encode_scan", dev):
+        return huff_encode_scan_plain(chunks, hist)
+    if chunks.data_ptr() % 16:
+        raise ValueError("chunks: must be 16-byte aligned")
+    codes, sizes = (torch.empty((c, 256), dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    maxlen, m = (torch.empty(c, dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    ok = torch.empty(c, dtype=torch.bool, device=dev)
+    vm = torch.empty((c, CHUNK), dtype=torch.int32, device=dev)
+    acc, nb, npairs = (torch.empty((c, 4), dtype=torch.int32, device=dev)
+                       for _ in range(3))
+    _launch("huff_encode_scan", dev, chunks, hist, c, codes, sizes, maxlen,
+            m, ok, vm, acc, nb, npairs)
+    return codes, sizes, maxlen, m, ok, vm, acc, nb, npairs
+
+
+# ---------------------------------------------------------------------------
+# headers (plain torch port of _pack_huff_headers)
+# ---------------------------------------------------------------------------
+
+def pack_huff_headers(sizes, m, ok, frag_bits):
+    """Per-chunk Huffman headers: alphabet (encodeAlphabet), code
+    lengths as signed exp-Golomb deltas from 2 (HuffmanEncoder.cpp:
+    112-126) and, for ok chunks, the 4 fragment bit counts as varints.
+    Returns (hdr [C, 512] uint8, bitlen [C] int64)."""
+    c, dev = sizes.shape[0], sizes.device
+    present = sizes > 0
+    pi = present.long()
+    rank = pi.cumsum(1) - pi
+    szr = torch.zeros((c, 257), dtype=torch.int64, device=dev).scatter_(
+        1, torch.where(present, rank, 256), sizes.long())[:, :256]
+    prev = torch.cat([torch.full((c, 1), 2, dtype=torch.int64, device=dev),
+                      szr[:, :-1]], 1)
+    delta = (szr - prev) & 0xFF
+    v = torch.where(delta < 128, delta, 256 - delta)
+    sgn = (delta >= 128).long()
+    log2 = _bit_length(v + 1) - 1
+    eg_bits = torch.where(delta == 0, 1, ((v + 1) << 1) | sgn)
+    in_alpha = torch.arange(256, device=dev)[None, :] < m[:, None]
+    eg_len = torch.where(in_alpha, torch.where(delta == 0, 1, 2 * log2 + 2),
+                         0)
+
+    full = m == 256
+    partial = ~full
+    last_mask = (255 - pi.flip(1).argmax(1)) >> 3
+    mask_bytes = (pi.view(c, 32, 8) << torch.arange(8, device=dev)).sum(2)
+
+    x = frag_bits.long()
+    n3 = torch.where(x < 128, 1, torch.where(x < 16384, 2, 3))
+    vb = torch.stack([
+        torch.where(n3 == 1, x, 0x80 | (x & 0x7F)),
+        torch.where(n3 == 2, x >> 7,
+                    torch.where(n3 == 3, 0x80 | ((x >> 7) & 0x7F), 0)),
+        torch.where(n3 == 3, x >> 14, 0)], 2).view(c, 12)
+    vn = 8 * ((torch.arange(3, device=dev) < n3[:, :, None])
+              & ok[:, None, None]).long().view(c, 12)
+
+    zero = torch.zeros_like(m)
+    vals = torch.cat([torch.stack([partial.long(), zero, last_mask], 1),
+                      mask_bytes, eg_bits, vb], 1)
+    nbits = torch.cat([
+        torch.stack([torch.ones_like(m), full.long(), 5 * partial.long()],
+                    1),
+        8 * (partial[:, None] & (torch.arange(32, device=dev)[None, :]
+                                 <= last_mask[:, None])).long(),
+        eg_len, vn], 1)
+    return pack_slots(vals, nbits)
+
+
+# ---------------------------------------------------------------------------
+# encode entry points
+# ---------------------------------------------------------------------------
+
+def encode_chunks(chunks: torch.Tensor):
+    """Encode full 16 KiB chunks, 4 fragments each. chunks [C, CHUNK]
+    uint8 on the coding device. Returns the nine outputs of
+    kanzi_tpu.ops.huffman.encode_chunks_np as tensors: (hdr [C, 512],
+    hdr_bits [C], ok [C], m [C], flat [2 * sum(npairs)] uint8 pair
+    stream, npairs [C, 4], acc [C, 4], nb [C, 4], frag_bits [C, 4])."""
+    _, sizes, _, m, ok, vm, acc, nb, npairs = huff_encode_scan(
+        chunks, histogram(chunks))
+    plen16 = npairs.long().sum(1)
+    off16 = plen16.cumsum(0) - plen16
+    flat = compact_rows(vm, off16, int(plen16.sum()))
+    frag_bits = 16 * npairs + nb * ok[:, None]
+    hdr, hdr_bits = pack_huff_headers(sizes, m.long(), ok, frag_bits)
+    return hdr, hdr_bits, ok, m, flat, npairs, acc, nb, frag_bits
+
+
+def encode_chunks_np(chunks: np.ndarray, device):
+    """numpy-facing encode_chunks: chunks [C, CHUNK] uint8 go to
+    ``device``; the outputs come back with kanzi_tpu's dtypes."""
+    t = _host_tensor(chunks, np.uint8).to(device)
+    out = [x.cpu().numpy() for x in encode_chunks(t)]
+    dtypes = (np.uint8, np.int32, bool, np.int32, np.uint8, np.int32,
+              np.uint32, np.int32, np.int32)
+    return tuple(a.astype(d, copy=False) if d != np.uint32
+                 else a.view(np.uint32) for a, d in zip(out, dtypes))
+
+
+# ---------------------------------------------------------------------------
+# E. decode
+# ---------------------------------------------------------------------------
+
+def decode_table(codes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """Direct 12-bit prefix table of each chunk: [C, 4096] int16 holding
+    sym | len<<8 (HuffmanDecoder.cpp buildDecodingTable). A prefix past
+    the last code keeps the entry before it, one before the first code
+    reads 0, as kanzi_tpu.ops.huffman._build_vt does. codes [C, 256] are
+    the canonical code values, sizes [C, 256] their lengths (0: absent)."""
+    c, dev = codes.shape[0], codes.device
+    ln = sizes.long()
+    present = ln > 0
+    start = torch.where(present, (codes.long() & 0xFFF)
+                        << (MAX_SYMBOL_SIZE - ln).clamp(min=0), TABLE)
+    syms = torch.arange(256, device=dev)[None, :]
+    entry = (start << 16) | (ln << 8) | syms
+    vt = torch.zeros((c, TABLE + 1), dtype=torch.int64, device=dev).scatter_(
+        1, start, torch.where(present, entry, 0))
+    return (vt[:, :TABLE].cummax(1).values & 0xFFFF).to(torch.int16)
+
+
+def huff_decode_plain(tbl, pay, bounds):
+    """Plain version of the huff_decode kernel: a Python loop over the
+    4096 steps on [C, 4] tensors. Each step reads the 12 bits at the
+    fragment's bit cursor (MSB first, 0 past the fragment's end)."""
+    c, dev = tbl.shape[0], tbl.device
+    n_pay = pay.numel()
+    payz = torch.cat([pay.long(), torch.zeros(1, dtype=torch.int64,
+                                              device=dev)])
+    start, end = bounds[:-1].view(c, 4), bounds[1:].view(c, 4)
+    tl = tbl.long()
+    bp = torch.zeros((c, 4), dtype=torch.int64, device=dev)
+    out = torch.empty((c, 4, FRAG), dtype=torch.uint8, device=dev)
+    for t in range(FRAG):
+        o = start + (bp >> 3)
+        w = torch.zeros_like(bp)
+        for k in range(3):
+            i = o + k
+            ok = (i >= 0) & (i < end) & (i < n_pay)
+            w = (w << 8) | payz[torch.where(ok, i, n_pay)]
+        e = tl.gather(1, (w >> (12 - (bp & 7))) & 0xFFF)
+        out[:, :, t] = (e & 0xFF).to(torch.uint8)
+        bp = bp + (e >> 8)
+    return out.view(c, CHUNK)
+
+
+def huff_decode(tbl, pay, bounds):
+    """tbl [C, 4096] int16 (decode_table); pay [N] uint8, every
+    fragment's bytes back to back; bounds [4C + 1] int64, fragment f of
+    chunk c is pay[bounds[4c + f] : bounds[4c + f + 1]]. Returns the
+    decoded chunks [C, CHUNK] uint8, fragment-major."""
+    c, dev = tbl.shape[0], tbl.device
+    _check("tbl", tbl, torch.int16, (c, TABLE), dev)
+    _check("pay", pay, torch.uint8, (pay.numel(),), dev)
+    _check("bounds", bounds, torch.int64, (4 * c + 1,), dev)
+    if _on_cpu("huff_decode", dev):
+        return huff_decode_plain(tbl, pay, bounds)
+    out = torch.empty((c, CHUNK), dtype=torch.uint8, device=dev)
+    _launch("huff_decode", dev, tbl, pay, pay.numel(), bounds, c, out)
+    return out
+
+
+def huffman_decode_chunks(codes: np.ndarray, sizes: np.ndarray,
+                          pay: np.ndarray, bounds: np.ndarray, device):
+    """codes [C, 256] canonical code values, sizes [C, 256] lengths;
+    pay [N] uint8 the byte-aligned fragments back to back, bounds
+    [4C + 1] their offsets. Returns [C, CHUNK] uint8 decoded chunks as
+    numpy. The contract of kanzi_tpu.ops.huffman.huffman_decode_chunks
+    with the fragments as one flat stream."""
+    def dev_tensor(a, dtype):
+        return _host_tensor(a, dtype).to(device)
+
+    tbl = decode_table(dev_tensor(codes, np.int64),
+                       dev_tensor(sizes, np.int64))
+    out = huff_decode(tbl, dev_tensor(pay, np.uint8),
+                      dev_tensor(bounds, np.int64))
+    return out.cpu().numpy()
+
+
+def flat_fragments(frag_pay: np.ndarray, frag_bytes: np.ndarray):
+    """kanzi_tpu's padded fragment rows [C, 4, row] uint8 with the byte
+    count of each fragment [C, 4] as this module's (pay, bounds)."""
+    n = np.asarray(frag_bytes, np.int64).reshape(-1)
+    rows = np.asarray(frag_pay, np.uint8).reshape(n.size, -1)
+    pay = np.concatenate([rows[i, :k] for i, k in enumerate(n)]) \
+        if n.size else np.zeros(0, np.uint8)
+    return pay, np.concatenate([[0], np.cumsum(n)])

@@ -1,7 +1,9 @@
-"""Wheel build: ship the native C++ sources inside the package so the
-runtime self-build (kanzi_tpu/utils/native.py) works from an installed
-wheel exactly like from the repo checkout (the .so files are compiled
-lazily with g++ on first use and cached next to the sources)."""
+"""Wheel build: ship the native C++ sources inside both packages so the
+runtime self-build (kanzi_tpu/utils/native.py and
+kanzi_tpu_torch/utils/native.py) works from an installed wheel exactly
+like from the repo checkout (the .so files are compiled lazily with g++
+on first use: kanzi_tpu caches them next to the sources, kanzi_tpu_torch
+under build/kanzi_tpu_torch/native)."""
 
 import shutil
 from pathlib import Path
@@ -14,12 +16,13 @@ class BuildPyWithNative(build_py):
     def run(self):
         super().run()
         root = Path(__file__).parent
-        dest = Path(self.build_lib) / "kanzi_tpu" / "native"
-        dest.mkdir(parents=True, exist_ok=True)
-        for src in (root / "native").glob("*.cpp"):
-            shutil.copy2(src, dest / src.name)
-        for src in (root / "native").glob("*.h"):
-            shutil.copy2(src, dest / src.name)
+        for pkg in ("kanzi_tpu", "kanzi_tpu_torch"):
+            dest = Path(self.build_lib) / pkg / "native"
+            dest.mkdir(parents=True, exist_ok=True)
+            for src in (root / "native").glob("*.cpp"):
+                shutil.copy2(src, dest / src.name)
+            for src in (root / "native").glob("*.h"):
+                shutil.copy2(src, dest / src.name)
 
 
 setup(cmdclass={"build_py": BuildPyWithNative})

@@ -1,6 +1,7 @@
 """The port's container (kanzi_tpu_torch) against kanzi_tpu's, byte for
 byte, on the CPU: the port's kernel wrappers run their plain PyTorch
-versions there, kanzi_tpu its JAX path on the CPU backend."""
+versions there, kanzi_tpu its JAX path on the CPU backend. Each output
+also decodes through the other package."""
 
 import subprocess
 import sys
@@ -25,6 +26,11 @@ ROOT = Path(__file__).resolve().parent.parent
 KIB = 1024
 CHUNK = tans.CHUNK
 L5 = LEVEL_TABLE[5]
+HUFF = ("huff_encode_scan_plain", "ans0_compact_plain", "huff_decode_plain")
+ANS0 = ("ans0_encode_scan_plain", "ans0_compact_plain", "ans0_decode_plain")
+# the kernels (plain versions here) each level's entropy stage runs; level
+# 4's ROLZ codes its literal sub-stream with ANS0
+LEVEL_KERNELS = {2: HUFF, 3: HUFF, 4: ANS0, 5: ANS0}
 
 
 def _text(rng, n):
@@ -45,8 +51,8 @@ def _mixed(seed, n):
 
 
 def _l5_data(seed):
-    """Two 64 KiB blocks whose TEXT+UTF+BWT+RANK+ZRLT output stays above
-    16 KiB, so the ANS0 stage has full chunks to batch."""
+    """Two 64 KiB blocks whose transform output stays above 16 KiB at
+    every level, so the ANS0 and Huffman stages have full chunks."""
     rng = np.random.default_rng(seed)
     return (_text(rng, 40 * KIB)
             + rng.integers(0, 256, 88 * KIB, dtype=np.uint8).tobytes())
@@ -73,14 +79,42 @@ def test_none_ans0_matches_kanzi_tpu():
     assert kanzi_tpu.decompress_bytes(ours) == data
 
 
-def test_level5_matches_kanzi_tpu():
+@pytest.mark.parametrize("transform,entropy", [
+    *(LEVEL_TABLE[lv] for lv in range(10)),
+    ("NONE", "HUFFMAN"), ("LZX", "NONE"), ("LZ", "ANS0")],
+    ids=[*(f"level{lv}" for lv in range(10)), "NONE-HUFFMAN", "LZX-NONE",
+         "LZ-ANS0"])
+def test_chain_matches_kanzi_tpu(transform, entropy):
+    """Every level 0-9 and the chains the port once refused: the port's
+    output == kanzi_tpu's, and each decodes through the other package."""
     data = _l5_data(2)
-    ours = kanzi_tpu_torch.compress_bytes(data, *L5, block_size=64 * KIB,
-                                          device="cpu")
-    assert tops.COUNTERS.get("ans0_encode_scan_plain") == 1
-    assert ours == kanzi_tpu.compress_bytes(data, *L5, block_size=64 * KIB)
+    ours = kanzi_tpu_torch.compress_bytes(data, transform, entropy,
+                                          block_size=64 * KIB, device="cpu")
+    level = {te: lv for lv, te in LEVEL_TABLE.items()}.get(
+        (transform, entropy))
+    kernels = LEVEL_KERNELS.get(level, ())
+    assert all(tops.COUNTERS.get(k, 0) >= 1 for k in kernels
+               if "decode" not in k), tops.COUNTERS
+    assert ours == kanzi_tpu.compress_bytes(data, transform, entropy,
+                                            block_size=64 * KIB)
     assert kanzi_tpu_torch.decompress_bytes(ours, device="cpu") == data
-    assert tops.COUNTERS.get("ans0_decode_plain") == 1
+    assert all(tops.COUNTERS.get(k, 0) >= 1 for k in kernels), tops.COUNTERS
+    assert kanzi_tpu.decompress_bytes(ours) == data
+
+
+def test_none_huffman_matches_kanzi_tpu():
+    """-t NONE -e HUFFMAN over 3 blocks and a tail: one batched encode
+    for every block's full chunks, one decode per block."""
+    data = _mixed(9, 3 * 64 * KIB + 5000)
+    ours = kanzi_tpu_torch.compress_bytes(data, "NONE", "HUFFMAN",
+                                          block_size=64 * KIB, device="cpu")
+    assert tops.COUNTERS.get("huff_encode_scan_plain") == 1
+    assert tops.COUNTERS.get("ans0_compact_plain") == 1
+    ref = kanzi_tpu.compress_bytes(data, "NONE", "HUFFMAN",
+                                   block_size=64 * KIB)
+    assert ours == ref
+    assert kanzi_tpu_torch.decompress_bytes(ref, device="cpu") == data
+    assert tops.COUNTERS.get("huff_decode_plain") == 3
     assert kanzi_tpu.decompress_bytes(ours) == data
 
 
@@ -134,19 +168,20 @@ def test_decode_sink_rejects_a_wrong_payload_size():
 
 
 def test_api_roundtrip(tmp_path):
-    """kanzi_tpu_torch.api over a file, byte-identical with kanzi_tpu.api
-    fed the same calls."""
+    """kanzi_tpu_torch.api over a file with both packages' defaults (LZ
+    and HUFFMAN), byte-identical with kanzi_tpu.api fed the same
+    calls."""
     data = _mixed(6, 100 * KIB)
     ours, ref = tmp_path / "a.knz", tmp_path / "b.knz"
     for cls, path, kw in ((Compressor, ours, {"device": "cpu"}),
-                          (kanzi_tpu.api.Compressor, ref,
-                           {"transform": "NONE", "entropy": "ANS0"})):
+                          (kanzi_tpu.api.Compressor, ref, {})):
         with cls(str(path), block_size=64 * KIB, **kw) as c:
             c.compress(data[:64 * KIB])
             c.compress(data[64 * KIB:])
     assert ours.read_bytes() == ref.read_bytes()
     with Decompressor(str(ours), device="cpu") as d:
         assert d.decompress() == data
+    assert tops.COUNTERS.get("huff_encode_scan_plain", 0) >= 1
 
 
 def test_cli_roundtrip(tmp_path):
@@ -166,9 +201,7 @@ def test_cli_roundtrip(tmp_path):
         data, *L5, block_size=64 * KIB)
 
 
-@pytest.mark.parametrize("transform,entropy", [
-    ("NONE", "HUFFMAN"), ("LZX", "NONE"), ("LZ", "ANS0"),
-    ("NONE", "ANS1")])
+@pytest.mark.parametrize("transform,entropy", [("NONE", "ANS1")])
 def test_not_yet_ported_raises(transform, entropy):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         kanzi_tpu_torch.compress_bytes(b"abc" * 1000, transform, entropy,
@@ -178,19 +211,48 @@ def test_not_yet_ported_raises(transform, entropy):
         kanzi_tpu_torch.decompress_bytes(blob, device="cpu")
 
 
-def test_cli_level3_is_not_yet_ported(tmp_path, capsys):
-    src = tmp_path / "in.bin"
-    src.write_bytes(b"abc" * 1000)
-    rc = cli_main(["-c", "-l", "3", "-f", "--device", "cpu", "-i", str(src),
-                   "-o", str(tmp_path / "o.knz")])
-    assert rc != 0
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_default_level_roundtrip(tmp_path):
+    """python -m kanzi_tpu_torch -c with no -l/-t/-e runs level 3
+    (TEXT+UTF+PACK+MM+LZX and HUFFMAN), output equal to kanzi_tpu's."""
+    data = _l5_data(10)
+    src, knz, out = tmp_path / "in.bin", tmp_path / "in.knz", tmp_path / "o"
+    src.write_bytes(data)
+    assert cli_main(["-c", "-b", "64k", "-f", "--device", "cpu", "-i",
+                     str(src), "-o", str(knz)]) == 0
+    assert tops.COUNTERS.get("huff_encode_scan_plain", 0) >= 1
+    assert knz.read_bytes() == kanzi_tpu.compress_bytes(
+        data, *LEVEL_TABLE[3], block_size=64 * KIB)
+    assert cli_main(["-d", "-f", "--device", "cpu", "-i", str(knz), "-o",
+                     str(out)]) == 0
+    assert tops.COUNTERS.get("huff_decode_plain", 0) >= 1
+    assert out.read_bytes() == data
+
+
+def test_cli_file_workers_and_info(tmp_path, capsys):
+    """-j 2 on a directory compresses its files on a pool of file
+    workers, each output equal to kanzi_tpu's; -y prints each header."""
+    files = {tmp_path / "d" / f"{k}.bin": _l5_data(11 + k) for k in range(2)}
+    for path, data in files.items():
+        path.parent.mkdir(exist_ok=True)
+        path.write_bytes(data)
+    assert cli_main(["-c", "-l", "2", "-b", "64k", "-j", "2", "-f", "-v",
+                     "0", "--device", "cpu", "-i", str(tmp_path / "d")]) == 0
+    for path, data in files.items():
+        knz = path.with_name(path.name + ".knz")
+        assert knz.read_bytes() == kanzi_tpu.compress_bytes(
+            data, *LEVEL_TABLE[2], block_size=64 * KIB)
+    capsys.readouterr()
+    assert cli_main(["-y", "--device", "cpu", "-i",
+                     str(tmp_path / "d" / "0.bin.knz")]) == 0
+    out = capsys.readouterr().out
+    assert "0.bin.knz" in out and str(len(files[tmp_path / "d" / "0.bin"])) \
+        in out
 
 
 def test_host_path_without_native_libraries(monkeypatch):
     """With the device path off and no native C++ library, the coder's
     numpy fallback still writes kanzi_tpu's bytes and reads them back."""
-    from kanzi_tpu.utils import native
+    from kanzi_tpu_torch.utils import native
     data = _mixed(8, 40 * KIB)
     ref = kanzi_tpu.compress_bytes(data, "NONE", "ANS0", block_size=64 * KIB)
     monkeypatch.setattr(native, "transforms_available", lambda: False)

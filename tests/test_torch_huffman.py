@@ -1,0 +1,341 @@
+"""PyTorch port of the Huffman stage (kanzi_tpu_torch.ops.huffman and
+kanzi_tpu_torch.entropy.huffman) against the JAX package, bit for bit:
+the format is integer-only, so every tolerance here is exact equality.
+
+The JAX side runs as its own tests run it on the CPU:
+kanzi_tpu.ops.huffman.encode_chunks_np through huffman_encode_chunks
+(use_pallas=False) and huffman_decode_chunks through _huff_decode_xla,
+on one bucket of 8 chunks. On the CPU the port's kernel wrappers run
+their plain PyTorch versions; the kernels themselves are held against
+those versions by the needs_cuda test at the end, which skips without a
+card. The JAX package comes in through the ``jh`` fixture, so that the
+needs_cuda test also runs on a machine without JAX (KANZI_TEST_TPU=1
+keeps conftest.py from importing it):
+
+    KANZI_TEST_TPU=1 python -m pytest -m needs_cuda tests/test_torch_huffman.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import kanzi_tpu.ops as kops
+from kanzi_tpu.bitstream import BitWriter as RefBitWriter
+from kanzi_tpu.entropy.huffman import HuffmanEncoder as RefHuffmanEncoder
+
+import kanzi_tpu_torch.ops as tops
+from kanzi_tpu_torch.bitstream import BitReader, BitWriter
+from kanzi_tpu_torch.core.context import Context
+from kanzi_tpu_torch.entropy import utils as eu
+from kanzi_tpu_torch.entropy.exp_golomb import ExpGolombEncoder
+from kanzi_tpu_torch.entropy.huffman import HuffmanDecoder, HuffmanEncoder
+from kanzi_tpu_torch.ops import ans as tans
+from kanzi_tpu_torch.ops import huffman as th
+from kanzi_tpu_torch.utils import native
+
+CPU = torch.device("cpu")
+CHUNK = th.CHUNK
+
+
+@pytest.fixture(scope="module")
+def jh():
+    """kanzi_tpu.ops.huffman, the JAX reference (on the CPU backend)."""
+    from kanzi_tpu.ops import huffman
+    return huffman
+
+
+def _blocks():
+    """The input classes of tests/test_ops_huffman.py."""
+    rng = np.random.default_rng(5)
+    text = (b"huffman fragments on the systolic array " * 3000)
+    return {
+        "mixed": np.concatenate([
+            rng.integers(0, 256, 40000).astype(np.uint8),
+            np.frombuffer(text[:30000], dtype=np.uint8),
+            rng.choice(np.arange(3, dtype=np.uint8), 20000),
+            np.zeros(17000, np.uint8),
+        ]),
+        "skewed": np.concatenate([
+            rng.choice(np.arange(256, dtype=np.uint8), 49152,
+                       p=np.arange(1, 257) / np.arange(1, 257).sum()),
+            np.frombuffer(text[:20000], dtype=np.uint8),
+        ]),
+        # near-degenerate freqs push code lengths past 12 (host path)
+        "fib": np.repeat(np.arange(16, dtype=np.uint8),
+                         np.array([1, 1, 2, 3, 5, 8, 13, 21, 34, 55, 89,
+                                   144, 233, 377, 610, 15788])),
+    }
+
+
+def _chunk_corpus():
+    """8 chunks, one JAX shape bucket: five of "mixed" (random, text,
+    a 3-symbol alphabet, zeros), one "skewed", the "fib" chunk whose
+    codes run past 12 bits, and a single-symbol chunk."""
+    b = _blocks()
+    return np.stack([b["mixed"][i * CHUNK:(i + 1) * CHUNK] for i in range(5)]
+                    + [b["skewed"][:CHUNK], b["fib"][:CHUNK],
+                       np.full(CHUNK, 7, np.uint8)])
+
+
+def _hist(chunks):
+    return np.stack([np.bincount(r, minlength=256)
+                     for r in chunks]).astype(np.int32)
+
+
+def _fragments(enc):
+    """The byte-aligned fragments of each ok chunk from the nine encode
+    outputs (pairs, then the residual bits MSB first), as
+    HuffmanDecoder._read_fragments returns them."""
+    hdr, hdr_bits, ok, m, flat, npairs, acc, nb, frag_bits = enc
+    frags, base = [], 0
+    for ci in range(len(ok)):
+        row = []
+        for f in range(4):
+            k = int(npairs[ci, f])
+            raw = flat[2 * base:2 * (base + k)].tobytes()
+            base += k
+            r = int(nb[ci, f]) if ok[ci] else 0
+            if r:
+                v = (int(acc[ci, f]) & ((1 << r) - 1)) << (16 - r)
+                raw += v.to_bytes(2, "big")[:(r + 7) // 8]
+            assert 8 * len(raw) - 7 <= frag_bits[ci, f] <= 8 * len(raw)
+            row.append(raw)
+        frags.append(row)
+    return frags
+
+
+def test_code_tables_match_jax(jh):
+    """(codes, sizes, maxlen, m) == kanzi_tpu.ops.huffman's, including
+    the chunks the host codes (maxlen > 12, m == 1), both from
+    compute_code_tables and as the first outputs of kernel D's plain
+    version (int32, with ok = m > 1 and maxlen <= 12)."""
+    import jax.numpy as jnp
+    chunks = _chunk_corpus()
+    hist = _hist(chunks)
+    ref = [np.asarray(x).astype(np.int64)
+           for x in jh.compute_code_tables(jnp.asarray(hist))]
+    got = th.compute_code_tables(torch.from_numpy(hist))
+    scan = th.huff_encode_scan(torch.from_numpy(chunks),
+                               torch.from_numpy(hist).long())
+    for name, g, d, r in zip(("codes", "sizes", "maxlen", "m"), got, scan,
+                             ref):
+        assert np.array_equal(g.numpy(), r), name
+        assert d.dtype == torch.int32 and np.array_equal(d.numpy(), r), name
+    maxlen, m = ref[2:]
+    assert (maxlen > th.MAX_SYMBOL_SIZE).any() and (m == 1).any()
+    assert np.array_equal(scan[4].numpy(),
+                          (m > 1) & (maxlen <= th.MAX_SYMBOL_SIZE))
+
+
+def test_encode_matches_jax(jh):
+    """All nine outputs == kanzi_tpu.ops.huffman.encode_chunks_np, in
+    shape, dtype and value."""
+    chunks = _chunk_corpus()
+    tops.reset_counters()
+    got = th.encode_chunks_np(chunks, CPU)
+    ref = jh.encode_chunks_np(chunks)
+    names = ("hdr", "hdr_bits", "ok", "m", "flat", "npairs", "acc", "nb",
+             "frag_bits")
+    for name, g, r in zip(names, got, ref):
+        r = np.asarray(r)
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert np.array_equal(g, r), name
+    assert tops.COUNTERS == {"huff_encode_scan_plain": 1,
+                             "ans0_compact_plain": 1}
+
+
+def test_decode_matches_jax_and_roundtrips(jh):
+    """The plain decode of the flat fragment stream == kanzi_tpu's
+    decode of the same fragments in its padded rows, and == the input."""
+    import jax.numpy as jnp
+    chunks = _chunk_corpus()
+    enc = th.encode_chunks_np(chunks, CPU)
+    # the JAX package's code tables, handed to the port as tensors
+    codes, sizes = tans.from_numpy(
+        jh.compute_code_tables(jnp.asarray(_hist(chunks)))[:2], CPU)
+    sel = np.nonzero(enc[2])[0]
+    frags = _fragments(enc)
+    nbytes = np.array([[len(frags[ci][f]) for f in range(4)] for ci in sel])
+    rows = np.zeros((len(sel), 4, 2 * jh._FRAG_WPAD), np.uint8)
+    for i, ci in enumerate(sel):
+        for f in range(4):
+            rows[i, f, :nbytes[i, f]] = np.frombuffer(frags[ci][f], np.uint8)
+    codes = (codes.numpy() & 0xFFF)[sel]
+    sizes = sizes.numpy()[sel]
+    ref = jh.huffman_decode_chunks(codes.astype(np.uint32),
+                                   sizes.astype(np.int32), rows)
+    pay, bounds = th.flat_fragments(rows, nbytes)
+    tops.reset_counters()
+    got = th.huffman_decode_chunks(codes, sizes, pay, bounds, CPU)
+    assert tops.COUNTERS == {"huff_decode_plain": 1}
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, chunks[sel])
+
+
+def test_decode_reads_zero_past_the_fragment():
+    """A fragment cut short decodes as if zero-padded (the kernel reads
+    0 past a fragment's end, never the next fragment's bytes), and the
+    other fragments come out intact."""
+    chunks = _chunk_corpus()[:1]
+    enc = th.encode_chunks_np(chunks, CPU)
+    codes, sizes, _, _ = th.compute_code_tables(
+        torch.from_numpy(_hist(chunks)))
+    tbl = th.decode_table(codes & 0xFFF, sizes)
+    frags = _fragments(enc)[0]
+    cut = frags[:1] + [frags[1][:100]] + frags[2:]
+    zero = frags[:1] + [frags[1][:100] + bytes(len(frags[1]) - 100)] \
+        + frags[2:]
+
+    def decode(parts):
+        n = np.array([len(p) for p in parts])
+        pay = torch.from_numpy(np.frombuffer(b"".join(parts), np.uint8)
+                               .copy())
+        bounds = torch.from_numpy(np.concatenate([[0], np.cumsum(n)]))
+        return th.huff_decode(tbl, pay, bounds)
+
+    got = decode(cut)
+    assert torch.equal(got, decode(zero))
+    ref = torch.from_numpy(chunks)
+    frag = th.FRAG
+    assert torch.equal(got[:, :frag], ref[:, :frag])
+    assert torch.equal(got[:, 2 * frag:], ref[:, 2 * frag:])
+    assert not torch.equal(got[:, frag:2 * frag], ref[:, frag:2 * frag])
+
+
+@pytest.fixture
+def _ref_host_path():
+    kops.disable()
+    yield
+    kops.enable()
+
+
+@pytest.mark.parametrize("name", ["mixed", "skewed", "fib"])
+def test_coder_matches_kanzi_tpu(name, _ref_host_path):
+    """HuffmanEncoder/HuffmanDecoder of the port == kanzi_tpu's host
+    coder (kanzi_tpu.ops disabled), with the port's full chunks on the
+    plain versions of kernels D, B and E."""
+    block = _blocks()[name]
+    ref = RefBitWriter()
+    RefHuffmanEncoder(ref).encode(block)
+    ctx = Context({"device": "cpu"})
+    tops.reset_counters()
+    w = BitWriter()
+    assert HuffmanEncoder(w, ctx).encode(block) == len(block)
+    assert w.getvalue() == ref.getvalue()
+    dec = HuffmanDecoder(BitReader(w.getvalue()), ctx).decode(len(block))
+    assert np.array_equal(dec, block)
+    assert tops.COUNTERS["huff_encode_scan_plain"] == 1
+    assert tops.COUNTERS["huff_decode_plain"] == 1
+
+
+@pytest.mark.parametrize("name", ["mixed", "skewed", "fib"])
+def test_native_parse_matches_python_parse(name):
+    """The native parse of a block's full chunks (csrc/huff_parse.cpp)
+    lists the same chunks, codes, lengths and byte-aligned fragments as
+    the Python parse (_read_lengths, _read_fragments), fills the chunks
+    of one symbol, and ends at the same bit."""
+    block = _blocks()[name]
+    block = np.concatenate([block, np.full(CHUNK, 9, np.uint8)])
+    w = BitWriter()
+    HuffmanEncoder(w, Context({"device": "cpu"})).encode(block)
+    full = len(block) // CHUNK
+    got_out = np.zeros(full * CHUNK, np.uint8)
+    r = BitReader(w.getvalue())
+    pos, parsed, idx, codes, sizes, pay, bounds = native.huff_parse_block(
+        r._data, r._nbits, 0, full, got_out)
+    assert parsed == full
+    dec = HuffmanDecoder(BitReader(w.getvalue()), Context({"device": "cpu"}))
+    ref_idx, ref_frags = [], []
+    for c in range(full):
+        alphabet, sz, cd = dec._read_lengths()
+        if len(alphabet) == 1:
+            assert (got_out[c * CHUNK:(c + 1) * CHUNK] == alphabet[0]).all()
+            continue
+        k = len(ref_idx)
+        assert np.array_equal(sizes[k], sz) and np.array_equal(codes[k], cd)
+        ref_idx.append(c)
+        raw, nbytes = dec._read_fragments()
+        ref_frags.append(raw)
+        assert list(np.diff(bounds[4 * k:4 * k + 5])) == nbytes
+    assert list(idx) == ref_idx and len(idx) >= 1
+    assert pay.tobytes() == b"".join(ref_frags)
+    assert pos == dec.ibs._pos
+
+
+@pytest.mark.parametrize("parser", ["python", "native"])
+def test_fragment_size_limit(parser):
+    """A fragment longer than 4096 codes of 12 bits is refused before any
+    decode, by either parse."""
+    w = BitWriter()
+    if parser == "native":
+        eu.encode_alphabet(w, np.array([1, 2]))
+        ExpGolombEncoder(w, signed=True).encode_byte(0xFF)   # lengths 1, 1
+        ExpGolombEncoder(w, signed=True).encode_byte(0)
+    for nbits in (8 * th.FRAG_MAX_BYTES + 1, 8, 8, 8):
+        eu.write_varint(w, nbits)
+    w.write_bytes(bytes(7000))
+    r = BitReader(w.getvalue())
+    with pytest.raises(ValueError, match="fragment size"):
+        if parser == "native":
+            native.huff_parse_block(r._data, r._nbits, 0, 1,
+                                    np.zeros(CHUNK, np.uint8))
+        else:
+            HuffmanDecoder(r, Context({"device": "cpu"}))._read_fragments()
+
+
+def test_wrappers_check_their_inputs():
+    chunks = torch.zeros((2, CHUNK), dtype=torch.uint8)
+    hist = torch.zeros((2, 256), dtype=torch.int64)
+    with pytest.raises(ValueError, match="hist"):
+        th.huff_encode_scan(chunks, hist.int())
+    with pytest.raises(ValueError, match="hist"):
+        th.huff_encode_scan(chunks, hist[:1])
+    with pytest.raises(ValueError, match="chunks"):
+        th.huff_encode_scan(chunks.int(), hist)
+    with pytest.raises(ValueError, match="bounds"):
+        th.huff_decode(torch.zeros((2, th.TABLE), dtype=torch.int16),
+                       torch.zeros(4, dtype=torch.uint8),
+                       torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="no kernel"):
+        th.huff_encode_scan(chunks.to("meta"), hist.to("meta"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n_chunks", [8, 64, 256])
+def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
+    """Kernels D (code tables and scan) and E against their plain
+    versions on the card: the corpus above plus random and skewed
+    chunks."""
+    rng = np.random.default_rng(n_chunks)
+    host = rng.integers(0, 256, (n_chunks, CHUNK)).astype(np.uint8)
+    host[n_chunks // 2:] = rng.geometric(0.05, (n_chunks - n_chunks // 2,
+                                               CHUNK)).astype(np.uint8)
+    host[:8] = _chunk_corpus()
+    chunks = torch.from_numpy(host).to(cuda_device)
+    hist = th.histogram(chunks)
+    got = th.huff_encode_scan(chunks, hist)
+    ref = th.huff_encode_scan_plain(chunks, hist)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    codes, sizes = ref[:2]
+    enc = th.encode_chunks_np(host, cuda_device)
+    sel = np.nonzero(enc[2])[0]
+    frags = _fragments(enc)
+    parts = [frags[ci][f] for ci in sel for f in range(4)]
+    pay = torch.from_numpy(np.frombuffer(b"".join(parts), np.uint8).copy())
+    bounds = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+    tbl = th.decode_table(codes[sel] & 0xFFF, sizes[sel])
+    args = (tbl, pay.to(cuda_device), torch.from_numpy(bounds).to(
+        cuda_device))
+    got = th.huff_decode(*args)
+    ref = th.huff_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got.cpu(), torch.from_numpy(host[sel]))
