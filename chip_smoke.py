@@ -12,28 +12,43 @@ Phases (each raises on failure, so any failure exits non-zero):
    all at once);
 3. build a 64 MiB mixed corpus from a fixed seed (source text, ELF
    binaries, English-like text, random, sparse alphabet, zeros, runs);
-4. run each kernel and its plain PyTorch version on the card at the main
-   path's shape (4096 chunks of 16 KiB) and require bit-identical
-   results; time both (median of CUDA-event times), the one PyTorch call
-   that computes the same function where there is one (library_ms), and
-   compute each kernel's bound from the bytes and operations of these
-   inputs;
-5. the two container paths, each with the launch counters reset just
+4. run each kernel and its plain PyTorch version on the card and
+   require bit-identical results; time both (median of CUDA-event
+   times), the one PyTorch call that computes the same function where
+   there is one (library_ms), and compute each kernel's bound from the
+   bytes and operations of these inputs. Kernels A-E at the main path's
+   shape (4096 chunks of 16 KiB). F (order-1 ANS) and G (FPAQ) are held
+   against their plain versions on the card, timed once, at shapes
+   those finish in seconds (F: 16 chunks of 64 KiB; G: 64 streams of 8
+   KiB with 2 KiB FPAQ chunks); against their plain versions run on the
+   host's CPU, in two worker processes of this script started after
+   phase 3 and read before phase 8, at the container's launch shape of F
+   (one 4 MiB chunk) and at the main path's 16 streams and 4 MiB FPAQ
+   chunks for G, cut to their first 256 KiB (a plain run over 4 MiB is 32M
+   bit steps, about an hour); and they are timed at the main path's
+   shape (the corpus as 16 chunks, resp. 16 streams, of 4 MiB), where
+   their output is held against the port's native host coders
+   (native.ans1_enc_block, the native FPAQ coder, which is timed too:
+   the crossover stream count of the container's FPAQ gate);
+5. the four container paths, each with the launch counters reset just
    before and read just after: the corpus through kanzi_tpu_torch's
-   container with -e ANS0 and with -e HUFFMAN (-t NONE, 4 MiB blocks);
-   require a round trip, output byte-identical with the host path (the
-   same container with kanzi_tpu_torch.ops disabled: the port's native
-   C++ coders), and every kernel of the path launched; then one run of
-   each Huffman direction under torch.profiler (device time by kernel
-   and copy, the device's idle share) and under cProfile (host self
-   time);
+   container with -e ANS0, -e HUFFMAN, -e ANS1 and -e FPAQ (-t NONE,
+   4 MiB blocks); require a round trip,
+   output byte-identical with the host path (the same container with
+   kanzi_tpu_torch.ops disabled: the port's native C++ coders), and
+   every kernel of the path launched; then one run of each Huffman
+   direction and of the ANS1 and FPAQ encodes under torch.profiler
+   (device time by kernel and copy, the device's idle share) and under
+   cProfile (host self time);
 6. round-trip 1 MiB of it through the port at every level 0-9;
-7. compress and decompress 16 MiB of it at level 5 and at the default
-   level (3, no -l) through the CLI's entry point
-   (kanzi_tpu_torch.app.cli.main, in this process, the counters reset
-   just before and read just after), on the card and then on the host
-   path: the outputs byte-identical, every kernel of the level's path
-   launched, both rates printed side by side;
+7. compress and decompress 16 MiB of it at level 5, at the default level
+   (3, no -l) and at level 6 with 256 KiB blocks (64 FPAQ blocks of
+   one writer batch, enough for the card's FPAQ gate; level 6's own 8
+   MiB blocks make 2, which the gate leaves on the host) through the
+   CLI's entry point (kanzi_tpu_torch.app.cli.main, in this process, the
+   counters reset just before and read just after), on the card and
+   then on the host path: the outputs byte-identical, every kernel of
+   the level's path launched, both rates printed side by side;
 8. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
@@ -41,6 +56,7 @@ its main path, its largest difference from the plain version, its time,
 the plain version's, its bound and the library call's; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits
 non-zero before printing either. Scratch files go to build/chip_smoke/.
+(``chip_smoke.py --plain FILE`` is the worker mode of phase 4.)
 """
 
 import cProfile
@@ -64,17 +80,27 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 # 32-bit scalar rate outside the tensor cores (H100 SXM data sheet, fp32);
 # the kernels' work is 32-bit integer ALU operations
 SCALAR_OPS_PER_S = 67e12
-# integer operations per symbol (per slot for the compaction), counted
-# from the kernels' inner loops
+# integer operations per symbol (per slot for the compaction, per input
+# byte for FPAQ: 8 bit steps of ~24, 64-bit operations counted twice),
+# counted from the kernels' inner loops
 OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
-       "huff_encode_scan": 14, "huff_decode": 8}
+       "huff_encode_scan": 14, "huff_decode": 8, "ans1_encode_scan": 20,
+       "fpaq_encode": 8 * 24}
 REPLACES = {
     "ans0_encode_scan": ("ans0.cu", "kanzi_tpu/ops/ans.py:120"),
     "ans0_compact": ("ans0.cu", "kanzi_tpu/ops/ans.py:210"),
     "ans0_decode": ("ans0.cu", "kanzi_tpu/ops/ans.py:568"),
     "huff_encode_scan": ("huffman.cu", "kanzi_tpu/ops/ans.py:145"),
     "huff_decode": ("huffman.cu", "kanzi_tpu/ops/huffman.py:317"),
+    "ans1_encode_scan": ("ans1.cu", "kanzi_tpu/ops/ans1.py:142, "
+                                    "kanzi_tpu/ops/ans1.py:221"),
+    "fpaq_encode": ("fpaq.cu", "kanzi_tpu/ops/fpaq.py:286"),
 }
+SMALL_ANS1 = (16, 64 << 10)         # F against its plain version
+SMALL_FPAQ = (64, 8 << 10, 2048)    # G: streams, bytes, FPAQ chunk bytes
+HOST_FPAQ_BYTES = 256 << 10         # G's plain run on the CPU: each of the
+                                    # 16 main-path streams' first bytes
+WORK = ROOT / "build" / "chip_smoke"
 
 
 def fail(msg: str):
@@ -146,6 +172,19 @@ def median_ms(fn, runs: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """(result, device time in ms) of one call bracketed by CUDA events:
+    for the plain versions of F and G, whose one call at a small shape
+    takes seconds of launches."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def max_abs_err(a, b) -> int:
@@ -336,17 +375,216 @@ def check_huffman_kernels(chunks, dhuff) -> tuple:
     return res
 
 
+def plain_worker(path: Path) -> None:
+    """Worker mode: run one plain version on the CPU on the inputs saved
+    at path, save its outputs and seconds beside them."""
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    from kanzi_tpu_torch.ops import ans1 as dans1
+    from kanzi_tpu_torch.ops import fpaq as dfp
+    a = torch.load(path)
+    t0 = time.perf_counter()
+    if a["kind"] == "ans1_encode_scan":
+        out = dans1.ans1_encode_scan_plain(a["chunks"], a["table"], a["lut"])
+    else:
+        out = dfp.fpaq_encode_plain(a["streams"], a["lens"], a["chunk_win"],
+                                    a["cap"])
+    torch.save({"out": list(out), "seconds": time.perf_counter() - t0},
+               path.with_suffix(".out"))
+
+
+def start_plain_workers(corpus, dans1, dfp, native) -> dict:
+    """Save the full-shape inputs of F and G (see phase 4) and start one
+    worker process on each. Returns {kernel: (inputs, process)}."""
+    host = np.frombuffer(corpus[:dans1.CHUNK1], np.uint8)[None]
+    f_in = {"kind": "ans1_encode_scan",
+            "chunks": torch.from_numpy(host.copy()),
+            "table": dans1.encode_table(torch.from_numpy(
+                ans1_freqs(host, native))),
+            "lut": dans1.INV_LUT}
+    streams = np.frombuffer(corpus, np.uint8).reshape(-1, dfp.CHUNK_B)
+    g_in = {"kind": "fpaq_encode",
+            "streams": torch.from_numpy(
+                streams[:, :HOST_FPAQ_BYTES].copy()),
+            "lens": torch.full((len(streams),), HOST_FPAQ_BYTES,
+                               dtype=torch.int64),
+            "chunk_win": dfp.CHUNK_B // dfp.WIN_B,
+            "cap": HOST_FPAQ_BYTES // dfp.WIN_B * dfp.REGION_W}
+    workers = {}
+    for a in (f_in, g_in):
+        path = WORK / f"plain_{a['kind']}.pt"
+        torch.save(a, path)
+        err = open(path.with_suffix(".err"), "w")
+        workers[a["kind"]] = (a, subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--plain",
+             str(path)], stdout=subprocess.DEVNULL, stderr=err))
+        err.close()
+    return workers
+
+
+def finish_plain_workers(workers, full_got, kres) -> None:
+    """Wait for the workers, hold the kernels' outputs on the same
+    inputs (full_got) against theirs and fold the difference into
+    kres' max_abs_err."""
+    for k, (a, proc) in workers.items():
+        path = WORK / f"plain_{k}.pt"
+        if proc.wait(timeout=900) != 0:
+            fail(f"the plain worker of {k} exited {proc.returncode}: "
+                 f"{path.with_suffix('.err').read_text()[-2000:]}")
+        res = torch.load(path.with_suffix(".out"))
+        err = max(max_abs_err(g, r) for g, r in zip(full_got[k], res["out"]))
+        shape = "x".join(map(str, (a.get("chunks", a.get("streams"))).shape))
+        log(f"kernel {k}: max_abs_err {err} against its plain version on "
+            f"the host's CPU at [{shape}] (plain {res['seconds']:.3f} s)")
+        kres[k]["err"] = max(kres[k]["err"], err)
+
+
+def ans1_freqs(host_chunks, native):
+    return np.stack([native.ans1_norm(native.ans1_hist(ch))
+                     for ch in host_chunks])
+
+
+def check_ans1_kernel(corpus, dans1, native, dev, f_in, full_got) -> dict:
+    """F against its plain version at SMALL_ANS1, then timed at the main
+    path's shape: the corpus as 4 MiB order-1 chunks, 16 a call, whose
+    bitstream (headers from the native helpers, states and payload from
+    F and B) must equal native.ans1_enc_block's. Its outputs on f_in
+    (one 4 MiB chunk, the container's launch shape, timed too) go to
+    full_got for the plain worker's check."""
+    from kanzi_tpu_torch.bitstream import BitWriter
+    from kanzi_tpu_torch.core.context import Context
+    from kanzi_tpu_torch.entropy.ans import ANSRangeEncoder
+    lut = dans1.INV_LUT.to(dev)
+    n, size = SMALL_ANS1
+    host = np.frombuffer(corpus[:n * size], np.uint8).reshape(n, size)
+    small = torch.from_numpy(host.copy()).to(dev)
+    table = dans1.encode_table(torch.from_numpy(ans1_freqs(host, native))
+                               .to(dev))
+    got = dans1.ans1_encode_scan(small, table, lut)
+    ref, plain_ms = once_ms(
+        lambda: dans1.ans1_encode_scan_plain(small, table, lut))
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    one = [f_in[k].to(dev) for k in ("chunks", "table", "lut")]
+    full_got["ans1_encode_scan"] = [
+        t.cpu() for t in dans1.ans1_encode_scan(*one)]
+    ms_one = median_ms(lambda: dans1.ans1_encode_scan(*one), 3)
+    del one
+
+    host = np.frombuffer(corpus, np.uint8).reshape(-1, dans1.CHUNK1)
+    chunks = torch.from_numpy(host.copy()).to(dev)
+    table = dans1.encode_table(torch.from_numpy(ans1_freqs(host, native))
+                               .to(dev))
+    ms = median_ms(lambda: dans1.ans1_encode_scan(chunks, table, lut), 3)
+    states, vm = dans1.ans1_encode_scan(chunks, table, lut)
+    idx = dans1.build_sym_idx(chunks).long()
+    library_ms = median_ms(lambda: torch.gather(table, 1, idx), 3)
+    del idx
+    block = np.frombuffer(corpus, np.uint8)
+    w = BitWriter()
+    enc = ANSRangeEncoder(w, Context({"device": str(dev)}), order=1)
+    if enc._encode_device1(block, len(block)) != len(block):
+        fail("ans1: the corpus is not whole 4 MiB order-1 chunks")
+    data, nbits = native.ans1_enc_block(block, dans1.CHUNK1,
+                                        dans1.LOG_RANGE1)
+    if w.written() != nbits or w.getvalue() != data.tobytes():
+        fail("ans1: the card's order-1 bitstream differs from "
+             "native.ans1_enc_block's")
+    q = dans1.CHUNK1 // 4
+    log(f"kernel ans1_encode_scan: {len(host)} chunks of 4 MiB, 4 lanes x "
+        f"{q} steps each: kernel_ms {ms}, {1e6 * ms / q:.2f} ns per "
+        f"dependent step; at one chunk (the container's launch) "
+        f"{ms_one}; plain_ms {plain_ms} at {n} chunks of {size >> 10} KiB "
+        f"(once); bitstream == native.ans1_enc_block")
+    return {"ans1_encode_scan": dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound("ans1_encode_scan",
+                nbytes(chunks, table, lut, states, vm), chunks.numel()))}
+
+
+def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
+    """G against its plain version at SMALL_FPAQ, then timed at the main
+    path's shape: the corpus as 16 streams of 4 MiB (one FPAQ chunk
+    each), whose flush bytes and final low (fpaq_encode_batch, the
+    container's call) must equal the native host coder's, which is timed
+    per stream: the crossover of the container's FPAQ gate is G's time
+    over that. Its outputs on g_in go to full_got for the plain
+    worker's check."""
+    from kanzi_tpu_torch.entropy.native_bin import KIND_FPAQ, _new_handle
+    from kanzi_tpu_torch.io.compressed_stream import FPAQ_MIN_STREAMS
+    n, size, chunk = SMALL_FPAQ
+    small = torch.from_numpy(np.frombuffer(corpus[:n * size], np.uint8)
+                             .reshape(n, size).copy()).to(dev)
+    lens = torch.full((n,), size, dtype=torch.int64, device=dev)
+    cap = size // dfp.WIN_B * dfp.REGION_W
+    got = dfp.fpaq_encode(small, lens, chunk // dfp.WIN_B, cap)
+    ref, plain_ms = once_ms(
+        lambda: dfp.fpaq_encode_plain(small, lens, chunk // dfp.WIN_B, cap))
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    full_got["fpaq_encode"] = [t.cpu() for t in dfp.fpaq_encode(
+        g_in["streams"].to(dev), g_in["lens"].to(dev), g_in["chunk_win"],
+        g_in["cap"])]
+
+    host = np.frombuffer(corpus, np.uint8).reshape(-1, dfp.CHUNK_B)
+    streams = torch.from_numpy(host.copy()).to(dev)
+    lens = torch.full((len(host),), dfp.CHUNK_B, dtype=torch.int64,
+                      device=dev)
+    cw = dfp.CHUNK_B // dfp.WIN_B
+    cap = dfp.CHUNK_B // dfp.WIN_B * dfp.REGION_W
+    ms = median_ms(lambda: dfp.fpaq_encode(streams, lens, cw, cap), 3)
+    _, win_cnt, win_low = dfp.fpaq_encode(streams, lens, cw, cap)
+    bufs, lows, _, _ = dfp.fpaq_encode_batch(
+        host, np.full(len(host), dfp.CHUNK_B), dfp.CHUNK_B, dev)
+    total = win_cnt.long().sum(1).cpu().numpy()
+    host_s = 0.0
+    for i, row in enumerate(host):
+        h = _new_handle(KIND_FPAQ, None)
+        t0 = time.perf_counter()
+        buf, n_out = native.bincoder_enc_chunk(h, row)
+        host_s += time.perf_counter() - t0
+        low = native.bincoder_get_low(h) | 0xFFFFFF
+        native.bincoder_free(h)
+        if bufs[i] != bytes(buf[:n_out]) or lows[i] != low:
+            fail(f"fpaq: stream {i} differs from the native FPAQ coder")
+    steps = 8 * dfp.CHUNK_B
+    host_ms = 1000 * host_s / len(host)
+    log(f"kernel fpaq_encode: {len(host)} streams of 4 MiB, {steps} bit "
+        f"steps each: kernel_ms {ms}, {1e6 * ms / steps:.2f} ns per "
+        f"dependent step; plain_ms {plain_ms} at {n} streams of "
+        f"{size >> 10} KiB (once); bytes and lows == the native coder's; "
+        f"native coder {host_ms:.3f} ms a stream on the host, crossover "
+        f"{ms / host_ms:.2f} streams (the container's gate: "
+        f"{FPAQ_MIN_STREAMS})")
+    # the words the kernel writes are the flushes this data needs
+    moved = nbytes(streams, lens, win_cnt, win_low) + 4 * int(total.sum())
+    return {"fpaq_encode": dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound("fpaq_encode", moved, streams.numel()))}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script runs only "
              "on a CUDA card")
     sys.path.insert(0, str(ROOT))
+    workers = {}
+    try:
+        run(workers)
+    finally:
+        for _, proc in workers.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def run(workers: dict) -> None:
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
     from kanzi_tpu_torch.app.cli import main as cli_main
     from kanzi_tpu_torch.ops import _build
     from kanzi_tpu_torch.ops import ans as dans
+    from kanzi_tpu_torch.ops import ans1 as dans1
+    from kanzi_tpu_torch.ops import fpaq as dfp
     from kanzi_tpu_torch.ops import huffman as dhuff
     from kanzi_tpu_torch.utils import native
 
@@ -367,9 +605,12 @@ def main() -> None:
     for so in libs:
         log(so.with_suffix(".log").read_text().strip())
 
-    # 3. corpus
+    # 3. corpus; the plain workers of F and G start on it
     corpus = make_corpus(N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
+    WORK.mkdir(parents=True, exist_ok=True)
+    workers.update(start_plain_workers(corpus, dans1, dfp, native))
+    full_got = {}
 
     # 4. kernels against their plain versions at the main path's shape
     dev = torch.device("cuda", 0)
@@ -378,10 +619,20 @@ def main() -> None:
     kres = check_ans0_kernels(chunks, dans)
     kres.update(check_huffman_kernels(chunks, dhuff))
     del chunks
+    kres.update(check_ans1_kernel(corpus, dans1, native, dev,
+                                  workers["ans1_encode_scan"][0], full_got))
+    kres.update(check_fpaq_kernel(corpus, dfp, native, dev,
+                                  workers["fpaq_encode"][0], full_got))
+    torch.cuda.empty_cache()
     for k, r in kres.items():
+        shape = {"ans1_encode_scan": "16 chunks of 4 MiB; plain on the "
+                                     "card at 16 x 64 KiB",
+                 "fpaq_encode": "16 streams of 4 MiB; plain on the card "
+                                "at 64 x 8 KiB"
+                 }.get(k, f"C={N_CHUNKS}")
         log(f"kernel {k}: max_abs_err {r['err']} kernel_ms {r['ms']} "
             f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
-            f"bound_ms {r['bound_ms']} ({r['bound_by']}) (C={N_CHUNKS})")
+            f"bound_ms {r['bound_ms']} ({r['bound_by']}) ({shape})")
         if r["err"] != 0:
             fail(f"{k} differs from its plain version")
 
@@ -397,20 +648,25 @@ def main() -> None:
     def rate(seconds):
         return f"{len(corpus) / MiB / seconds:.1f} MiB/s"
 
-    for entropy in ("ANS0", "HUFFMAN"):
+    for entropy in ("ANS0", "HUFFMAN", "ANS1", "FPAQ"):
         warm = kanzi_tpu_torch.compress_bytes(corpus[:BLOCK], "NONE",
                                               entropy, block_size=BLOCK)
         kanzi_tpu_torch.decompress_bytes(warm)
     launches = {}
-    for entropy, path in (("ANS0", ("ans0_encode_scan", "ans0_compact",
-                                    "ans0_decode")),
-                          ("HUFFMAN", ("huff_encode_scan", "ans0_compact",
-                                       "huff_decode"))):
+    blobs = {}
+    # (entropy, kernels of its path); the ANS1 and FPAQ decodes run on
+    # the host's native coders, as in kanzi_tpu
+    for entropy, path in (
+            ("ANS0", ("ans0_encode_scan", "ans0_compact", "ans0_decode")),
+            ("HUFFMAN", ("huff_encode_scan", "ans0_compact", "huff_decode")),
+            ("ANS1", ("ans1_encode_scan", "ans0_compact")),
+            ("FPAQ", ("fpaq_encode",))):
         ops.reset_counters()
         blob, t_enc = timed(kanzi_tpu_torch.compress_bytes, corpus, "NONE",
                             entropy, block_size=BLOCK)
         back, t_dec = timed(kanzi_tpu_torch.decompress_bytes, blob)
         counts = dict(ops.COUNTERS)
+        blobs[entropy] = blob
         log(f"container NONE/{entropy} on the card: {len(corpus)} -> "
             f"{len(blob)} bytes, encode {rate(t_enc)} ({t_enc:.3f} s), "
             f"decode {rate(t_dec)} ({t_dec:.3f} s), launches {counts}")
@@ -435,7 +691,11 @@ def main() -> None:
     profile("NONE/HUFFMAN encode", lambda: kanzi_tpu_torch.compress_bytes(
         corpus, "NONE", "HUFFMAN", block_size=BLOCK))
     profile("NONE/HUFFMAN decode",
-            lambda: kanzi_tpu_torch.decompress_bytes(blob))
+            lambda: kanzi_tpu_torch.decompress_bytes(blobs["HUFFMAN"]))
+    profile("NONE/ANS1 encode", lambda: kanzi_tpu_torch.compress_bytes(
+        corpus, "NONE", "ANS1", block_size=BLOCK))
+    profile("NONE/FPAQ encode", lambda: kanzi_tpu_torch.compress_bytes(
+        corpus, "NONE", "FPAQ", block_size=BLOCK))
     chunks_np = np.frombuffer(corpus, np.uint8).reshape(-1, dans.CHUNK)
     for mod in (dans, dhuff):
         _, t_stage = timed(mod.encode_chunks_np, chunks_np, "cuda")
@@ -455,10 +715,10 @@ def main() -> None:
         log(f"level {level} round trip: {len(data)} -> {len(blob)} bytes in "
             f"{time.perf_counter() - t0:.2f} s")
 
-    # 7. level 5 and the default level through the CLI's entry point
+    # 7. levels 5, 3 (the default) and 6 (FPAQ on the card) through the
+    # CLI's entry point
     log(f"native SA-IS available: {native.sais_available()}")
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
+    work = WORK
     data = corpus[:16 * MiB]
     src = work / "in.bin"
     src.write_bytes(data)
@@ -474,7 +734,8 @@ def main() -> None:
     for level, flags, path in (
             (5, ["-l", "5"], ("ans0_encode_scan", "ans0_compact",
                               "ans0_decode")),
-            (3, [], ("huff_encode_scan", "ans0_compact", "huff_decode"))):
+            (3, [], ("huff_encode_scan", "ans0_compact", "huff_decode")),
+            (6, ["-l", "6", "-b", "256k"], ("fpaq_encode",))):
         mib = {}
         for where in ("card", "host"):
             knz, dec = work / f"l{level}_{where}.knz", work / f"l{level}.out"
@@ -509,6 +770,9 @@ def main() -> None:
             f"{mib['host'][0]:.1f}), decompress {mib['card'][1]:.1f} MiB/s "
             f"(host path {mib['host'][1]:.1f})")
 
+    # F and G against their plain versions on the host's CPU
+    finish_plain_workers(workers, full_got, kres)
+
     # 8. no JAX, nothing of the JAX package
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
@@ -529,4 +793,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--plain"]:
+        plain_worker(Path(sys.argv[2]))
+    else:
+        main()

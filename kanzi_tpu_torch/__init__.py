@@ -7,8 +7,10 @@ package's own copy of kanzi_tpu's, under the same module paths; what ran
 on the TPU runs here as hand-written CUDA kernels (kanzi_tpu_torch/csrc)
 behind PyTorch. This package imports neither JAX nor kanzi_tpu.
 
-Ported so far: the ANS0 and HUFFMAN entropy stages, so every level 0-9
-and every entropy name but ANS1 runs (see ROADMAP.md).
+Ported so far: the ANS0 and HUFFMAN entropy stages, the ANS1 encode and
+the FPAQ encode (on the card where a writer batch has enough FPAQ
+blocks), so every level 0-9 and every entropy name runs (see
+ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -17,11 +17,13 @@ Pallas kernel uses with blocks/chunks as grid cells.
 
 In this package the full 16 KiB order-0 chunks run on the CUDA kernels
 of kanzi_tpu_torch.ops.ans, on the device the container put in the
-context (coding_device). Order 1 always runs on the host: the JAX
-package's order-1 device path needs a TPU. PyTorch's CUDA launches are
-thread-safe, so worker threads (the reader's -j prefetch) use the
-device too, where the JAX package keeps its device path on the main
-thread.
+context (coding_device), and, where that device is a CUDA card, the full
+4 MiB order-1 chunks on the encode kernel of kanzi_tpu_torch.ops.ans1
+(-e ANS1, and ROLZ's order-1 literal sub-streams of 4 MiB or more).
+Order-1 decode runs on the host's native coder, as in the JAX package.
+PyTorch's CUDA launches are thread-safe, so worker threads (the reader's
+-j prefetch) use the device too, where the JAX package keeps its device
+path on the main thread.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from kanzi_tpu_torch.bitstream import BitReader, BitWriter
 from kanzi_tpu_torch.entropy import utils as eu
 from kanzi_tpu_torch.entropy.base import EntropyDecoder, EntropyEncoder
 from kanzi_tpu_torch.ops import ans as dans
+from kanzi_tpu_torch.ops import ans1 as dans1
+from kanzi_tpu_torch.utils import native
 
 ANS_TOP = 1 << 15
 DEFAULT_CHUNK_SIZE = 16384
@@ -104,7 +108,6 @@ class ANSRangeEncoder(EntropyEncoder):
         """encodeHeader (:118-155): alphabet + grouped log-packed freqs-1.
         alphabet is always the nonzero support of freqs, so the native
         path derives it itself."""
-        from kanzi_tpu_torch.utils import native
         if native.transforms_available():
             data, nb = native.ans_enc_header(np.asarray(freqs[:256]), lr)
             self.obs._append_bit_run(data, nb)
@@ -144,8 +147,17 @@ class ANSRangeEncoder(EntropyEncoder):
             start = self._encode_device(block, count)
             if start >= count:
                 return count
+        elif (self.order == 1 and lr == 11
+                and self.chunk_size == dans1.CHUNK1
+                and count >= dans1.CHUNK1 and _device_ans_enabled()
+                and native.transforms_available()
+                and coding_device(self.ctx).type == "cuda"):
+            # on the CPU the kernel's plain version is a Python loop of
+            # a million steps a chunk: the native host coder does it
+            start = self._encode_device1(block, count)
+            if start >= count:
+                return count
         if start < count:
-            from kanzi_tpu_torch.utils import native
             if native.transforms_available():
                 # whole-block native path: all chunk headers + payloads
                 # in one call (bit-exact with the loop below)
@@ -175,7 +187,6 @@ class ANSRangeEncoder(EntropyEncoder):
                 tabs = _sym_encode_tables(freqs, lr)
                 self._encode_chunk0(chunk, tabs)
             else:
-                from kanzi_tpu_torch.utils import native
                 if lr == 11 and native.transforms_available():
                     # native histogram + per-context normalize + headers
                     tabs_freqs = native.ans1_norm(native.ans1_hist(chunk))
@@ -214,7 +225,6 @@ class ANSRangeEncoder(EntropyEncoder):
                 block[:full * dans.CHUNK].reshape(full, dans.CHUNK),
                 coding_device(self.ctx))
         offs = np.cumsum(plen) - plen
-        from kanzi_tpu_torch.utils import native
         if native.available():
             # one native splice for the whole batch: headers from hdr
             # (row-aligned), payload spans from flat
@@ -243,6 +253,37 @@ class ANSRangeEncoder(EntropyEncoder):
                         flat[offs[c]:offs[c] + plen[c]].tobytes())
         return full * dans.CHUNK
 
+    def _encode_device1(self, block: np.ndarray, count: int) -> int:
+        """Encode every full order-1 chunk (self.chunk_size bytes) with
+        the CUDA kernel (kanzi_tpu_torch.ops.ans1), 16 chunks a call;
+        the frequencies and headers come from the native host helpers,
+        as in kanzi_tpu. Returns where the host tail starts.
+        Bit-identical with the host path by construction."""
+        lr = self.log_range
+        size = self.chunk_size
+        full = count // size
+        dev = coding_device(self.ctx)
+        chunks = block[:full * size].reshape(full, size)
+        for b0 in range(0, full, 16):
+            sub = chunks[b0:b0 + 16]
+            freqs = np.stack([native.ans1_norm(native.ans1_hist(ch))
+                              for ch in sub])
+            states, flat, plen = dans1.ans1_encode_batch(
+                dans._host_tensor(sub, np.uint8).to(dev), freqs)
+            states = states.cpu().numpy().view(np.uint32)
+            flat = flat.cpu().numpy()
+            plen = plen.cpu().numpy()
+            offs = np.cumsum(plen) - plen
+            for ci in range(len(sub)):
+                self.obs.write_bits(lr - 8, 3)
+                for k in range(256):
+                    data, nb = native.ans_enc_header(freqs[ci, k], lr)
+                    self.obs._append_bit_run(data, nb)
+                self._emit_chunk(states[ci],
+                                 flat[offs[ci]:offs[ci] + plen[ci]].tobytes(),
+                                 b"")
+        return full * size
+
     def _order1_histogram(self, chunk):
         """4-quarter order-1 histogram, prev=0 seeded at each quarter start
         (rebuildStatistics + Global::computeHistogram order-1 semantics)."""
@@ -266,7 +307,6 @@ class ANSRangeEncoder(EntropyEncoder):
     def _run_lanes(self, sym_idx: np.ndarray, tabs) -> tuple:
         """sym_idx: (steps, 4) table indexes in encode order (backwards).
         Returns (final_states(4,), payload_renorm_bytes)."""
-        from kanzi_tpu_torch.utils import native
         if native.ans_available():
             return native.ans_enc_lanes(sym_idx, tabs)
         steps = sym_idx.shape[0]
@@ -322,7 +362,6 @@ class ANSRangeEncoder(EntropyEncoder):
         # lane k walks its quarter backwards: pairs (ctx=block[i], sym=
         # block[i+1]) for i = quarter-2..0, then final (ctx=0, sym=block[0])
         steps = quarter
-        from kanzi_tpu_torch.utils import native
         if steps and native.transforms_available():
             sym_idx = native.ans1_sym_idx(chunk)
         else:
@@ -379,7 +418,6 @@ class ANSRangeDecoder(EntropyDecoder):
 
     def _decode_header(self):
         """Returns (freqs (dim,256), alphabets list, lr) — decodeHeader."""
-        from kanzi_tpu_torch.utils import native
         if native.transforms_available():
             pos, freqs, counts, lr = native.ans_dec_header(
                 self.ibs._data, self.ibs._nbits, self.ibs._pos,
@@ -429,7 +467,6 @@ class ANSRangeDecoder(EntropyDecoder):
         device_ok = (self.order == 0 and self.chunk_size == 16384
                      and count >= 16384 and _device_ans_enabled())
         if not device_ok:
-            from kanzi_tpu_torch.utils import native
             if native.transforms_available():
                 fn = (native.ans0_dec_block if self.order == 0
                       else native.ans1_dec_block)
@@ -487,7 +524,6 @@ class ANSRangeDecoder(EntropyDecoder):
         mask = (1 << lr) - 1
         f = np.minimum(freqs, (1 << lr) - 1)  # mirror encoder clamp
         cum = np.cumsum(f, axis=-1) - f
-        from kanzi_tpu_torch.utils import native
         # freq -> symbol inverse map per context
         if native.transforms_available():
             f2s = native.ans_f2s(freqs, lr)

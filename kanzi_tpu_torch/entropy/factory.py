@@ -1,8 +1,4 @@
-"""Entropy registry: 5-bit ids (src/entropy/EntropyEncoderFactory.hpp:37-98).
-
-ANS1 (order-1 ANS as the entropy stage) is not ported yet: check_entropy
-refuses it when a stream is opened. ROLZ's order-1 sub-streams still
-code on the host through entropy.ans."""
+"""Entropy registry: 5-bit ids (src/entropy/EntropyEncoderFactory.hpp:37-98)."""
 
 from __future__ import annotations
 
@@ -43,14 +39,6 @@ def entropy_type_to_name(etype: int) -> str:
     return t.name
 
 
-def check_entropy(etype: int) -> None:
-    """Raise NotImplementedError for a coder the port does not have."""
-    t = EntropyType(etype)
-    if t == EntropyType.ANS1:
-        raise NotImplementedError(
-            f"{t.name} entropy coder not yet ported, see ROADMAP.md")
-
-
 _NATIVE_KIND = {}
 
 
@@ -67,7 +55,6 @@ def _native_kinds():
 
 
 def new_encoder(obs: BitWriter, ctx: Context, etype: int) -> EntropyEncoder:
-    check_entropy(etype)
     t = EntropyType(etype)
     if t in (EntropyType.FPAQ, EntropyType.CM, EntropyType.TPAQ,
              EntropyType.TPAQX):
@@ -108,7 +95,6 @@ def new_encoder(obs: BitWriter, ctx: Context, etype: int) -> EntropyEncoder:
 
 
 def new_decoder(ibs: BitReader, ctx: Context, etype: int) -> EntropyDecoder:
-    check_entropy(etype)
     t = EntropyType(etype)
     if t in (EntropyType.FPAQ, EntropyType.CM, EntropyType.TPAQ,
              EntropyType.TPAQX):

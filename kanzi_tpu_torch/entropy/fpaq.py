@@ -7,8 +7,11 @@ Reference: src/entropy/FPAQ{Encoder,Decoder}.{cpp,hpp}. 56-bit coder state,
 bits of each chunk's arithmetic stream are read directly as the initial
 'current' value (FPAQDecoder.cpp:64-71).
 
-Host golden implementation (scalar); the TPU path batches many chunks'
-bit-loops in lockstep (see kanzi_tpu/ops).
+Host golden implementation (scalar). Where a writer batch holds enough
+FPAQ blocks to beat the host coder, the container encodes them on the
+CUDA card instead, one stream per block
+(io.compressed_stream.prepare_fpaq_batch, ops.fpaq), and hands each
+encoder the result (emit_prepared).
 """
 
 from __future__ import annotations

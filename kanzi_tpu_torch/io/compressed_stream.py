@@ -16,8 +16,9 @@ CompressedInputStream.cpp) for a host-orchestrated TPU pipeline:
 Block encoding is embarrassingly parallel (the reference fans out
 EncodingTasks over a thread pool); here the full 16 KiB entropy chunks of
 every queued block go to the CUDA kernels in one call per coder
-(prepare_ans0_batch, prepare_huffman_batch), with this module doing the
-ordered host-side gather.
+(prepare_ans0_batch, prepare_huffman_batch; the FPAQ blocks too,
+prepare_fpaq_batch, where enough of them make a batch), with this module
+doing the ordered host-side gather.
 
 The coding device comes from the ``device`` argument of the writer and
 the reader (any ``torch.device`` spelling; default: the CUDA device) and
@@ -42,6 +43,7 @@ import kanzi_tpu_torch.ops as ops
 from kanzi_tpu_torch.entropy import factory as efactory
 from kanzi_tpu_torch.entropy.ans import ans0_flush_sink, coding_device
 from kanzi_tpu_torch.ops import ans as dans
+from kanzi_tpu_torch.ops import fpaq as dfp
 from kanzi_tpu_torch.ops import huffman as dhuff
 from kanzi_tpu_torch.transform import factory as tfactory
 from kanzi_tpu_torch.transform.sequence import SKIP_MASK
@@ -281,6 +283,69 @@ def encode_block(block: np.ndarray, block_id: int, ctx: Context,
 
 ANS0_TYPE = 5
 HUFFMAN_TYPE = 1
+FPAQ_TYPE = 2
+FPAQ_CHUNK = 4 * 1024 * 1024
+
+
+# The FPAQ encode goes to the card when the batch's FPAQ blocks, weighted
+# by length (their total over the longest), are at least this many: the
+# kernel's time is set by its longest stream (one chain a stream), the
+# host coder's by their total. Set at the top of the crossovers that
+# chip_smoke.py measured on an H100 (PERF.md; the kernel per launch over
+# the native coder per stream at the same length, which moves with the
+# host's speed), so that a batch sent to the card is not slower there.
+FPAQ_MIN_STREAMS = 12
+
+
+def _fpaq_on_device(dev, lens) -> bool:
+    """True where the FPAQ blocks of lengths ``lens`` code faster on
+    ``dev`` than on the host: a CUDA device and enough of them."""
+    return (dev.type == "cuda" and len(lens) > 0
+            and sum(lens) >= FPAQ_MIN_STREAMS * max(lens))
+
+
+def prepare_fpaq_batch(states: list, ctx: Context) -> None:
+    """Cross-block device batching for the FPAQ (l6) entropy stage: the
+    per-bit arithmetic-coding loops of up to 64 blocks run as one launch
+    on the coding device (ops/fpaq.py, one stream per block),
+    byte-identical with the host coder; each block gets its chunk
+    framing for emit_prepared. A group of blocks too few to beat the
+    host coder (_fpaq_on_device) stays on the host. Reference parallel
+    model: one EncodingTask per block
+    (src/io/CompressedOutputStream.cpp:476-540); coder:
+    src/entropy/FPAQEncoder.hpp encodeBit."""
+    if not ops.ENABLED:
+        return
+    elig = [st for st in states
+            if st["e_type"] == FPAQ_TYPE
+            and not (st["mode"] & COPY_BLOCK_MASK)
+            and st["post_len"] > 0]
+    if not elig:
+        return
+    dev = coding_device(ctx)
+    wpc = FPAQ_CHUNK // dfp.WIN_B             # windows per FPAQ chunk
+    for g0 in range(0, len(elig), dfp.NS):
+        group = elig[g0:g0 + dfp.NS]
+        lens = np.array([st["post_len"] for st in group], np.int64)
+        if not _fpaq_on_device(dev, lens.tolist()):
+            continue
+        streams = np.zeros((len(group), int(lens.max())), np.uint8)
+        for i, st in enumerate(group):
+            streams[i, :lens[i]] = st["out"][:lens[i]]
+        bufs, low56, ww, wl = dfp.fpaq_encode_batch(streams, lens,
+                                                    FPAQ_CHUNK, dev)
+        for i, st in enumerate(group):
+            nchunks = -(-int(lens[i]) // FPAQ_CHUNK)
+            chunk_bufs, bound_lows = [], []
+            pos = 0
+            for k in range(nchunks):
+                w_end = min((k + 1) * wpc, ww.shape[1])
+                words = int(ww[i, :w_end].sum()) - pos
+                chunk_bufs.append(bufs[i][4 * pos:4 * (pos + words)])
+                pos += words
+                if k + 1 < nchunks:
+                    bound_lows.append(int(wl[i, w_end - 1]))
+            st["prepared_entropy"] = (chunk_bufs, bound_lows, int(low56[i]))
 
 
 def prepare_huffman_batch(states: list, ctx: Context) -> None:
@@ -487,7 +552,6 @@ class CompressedWriter:
         self.transform_type = tfactory.transform_name_to_type(transform)
         self.entropy_type = efactory.entropy_name_to_type(entropy)
         tfactory.check_transform(self.transform_type)
-        efactory.check_entropy(self.entropy_type)
         if device is not None:
             self.ctx.put("device", str(device))
         self.ctx.put("entropy", efactory.entropy_type_to_name(self.entropy_type))
@@ -615,6 +679,7 @@ class CompressedWriter:
                 for block, bid, slot in work]
         prepare_ans0_batch(states, self.ctx)
         prepare_huffman_batch(states, self.ctx)
+        prepare_fpaq_batch(states, self.ctx)
         verbose5 = self.ctx.get_int("verbosity", 0) > 4 and self.listeners
         for st in states:
             payload, bits = _encode_block_phase2(st, self.listeners)
@@ -688,7 +753,6 @@ class CompressedReader:
         else:
             self._read_header()
         tfactory.check_transform(self.transform_type)
-        efactory.check_entropy(self.entropy_type)
         if device is not None:
             self.ctx.put("device", str(device))
         self.ctx.put("bsVersion", self.bs_version)

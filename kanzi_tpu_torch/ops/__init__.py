@@ -10,6 +10,8 @@ and hand tensors down.
 Layout:
 - ops.ans      interleaved 4-lane rANS order-0 chunk encode/decode
 - ops.huffman  4-fragment canonical Huffman chunk encode/decode
+- ops.ans1     interleaved 4-lane rANS order-1 chunk encode
+- ops.fpaq     FPAQ binary arithmetic encode, one stream per block
 - ops._build   nvcc build + ctypes binding of csrc/*.cu
 """
 

@@ -51,6 +51,15 @@ SIGNATURES = {
         # tbl, pay, n_pay, bounds, n_chunks, out, device, stream
         "huff_decode": [_P, _P, _L, _P, _I, _P, _I, _P],
     },
+    "ans1.cu": {
+        # chunks, table, lut, n_chunks, q, states, vm, device, stream
+        "ans1_encode_scan": [_P, _P, _P, _I, _I, _P, _P, _I, _P],
+    },
+    "fpaq.cu": {
+        # streams, lens, n_streams, lp, chunk_win, cap, words, win_cnt,
+        # win_low, device, stream
+        "fpaq_encode": [_P, _P, _I, _L, _I, _L, _P, _P, _P, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

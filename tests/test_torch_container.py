@@ -203,12 +203,17 @@ def test_cli_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("transform,entropy", [("NONE", "ANS1")])
 def test_not_yet_ported_raises(transform, entropy):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        kanzi_tpu_torch.compress_bytes(b"abc" * 1000, transform, entropy,
-                                       device="cpu")
-    blob = kanzi_tpu.compress_bytes(b"abc" * 1000, transform, entropy)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        kanzi_tpu_torch.decompress_bytes(blob, device="cpu")
+    """The coders the port once refused: none is left, so each writes
+    kanzi_tpu's bytes and reads kanzi_tpu's back (ANS1 blocks below one
+    4 MiB order-1 chunk take the host coder, as in kanzi_tpu)."""
+    data = _mixed(12, 100 * KIB)
+    ours = kanzi_tpu_torch.compress_bytes(data, transform, entropy,
+                                          block_size=64 * KIB, device="cpu")
+    blob = kanzi_tpu.compress_bytes(data, transform, entropy,
+                                    block_size=64 * KIB)
+    assert ours == blob
+    assert kanzi_tpu_torch.decompress_bytes(blob, device="cpu") == data
+    assert tops.COUNTERS == {}
 
 
 def test_cli_default_level_roundtrip(tmp_path):

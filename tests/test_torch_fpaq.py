@@ -1,0 +1,245 @@
+"""PyTorch port of the FPAQ encode (kanzi_tpu_torch.ops.fpaq and the
+container's prepare_fpaq_batch) against the JAX package, bit for bit:
+the format is integer-only, so every tolerance here is exact equality.
+
+The JAX package's kernel runs only on a TPU; on the CPU its
+fpaq_encode_batch takes the numpy lockstep model _encode_batch_np, the
+reference of every output here. On the CPU the port's kernel wrapper
+runs its plain PyTorch version; the kernel itself is held against that
+version by the needs_cuda test at the end, which skips without a card.
+JAX comes in through the ``jf`` fixture, so that test also runs on a
+machine without JAX:
+
+    KANZI_TEST_TPU=1 python -m pytest -m needs_cuda tests/test_torch_fpaq.py
+
+The plain version costs about a millisecond per byte here (8 bit steps
+of ~30 small ops), so the streams are a few KiB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import kanzi_tpu
+import kanzi_tpu.io.compressed_stream as ref_cs
+import kanzi_tpu.ops as kops
+
+import kanzi_tpu_torch
+import kanzi_tpu_torch.entropy.fpaq as fq
+import kanzi_tpu_torch.io.compressed_stream as cs
+import kanzi_tpu_torch.ops as tops
+from kanzi_tpu_torch.bitstream import BitWriter
+from kanzi_tpu_torch.core.context import Context
+from kanzi_tpu_torch.ops import fpaq as tf
+
+CH = 2048                        # a small FPAQ chunk: 4 windows of 512
+
+
+@pytest.fixture(scope="module")
+def jf():
+    """kanzi_tpu.ops.fpaq, the JAX reference (numpy model on the CPU)."""
+    from kanzi_tpu.ops import fpaq
+    return fpaq
+
+
+@pytest.fixture
+def fpaq_device(monkeypatch):
+    """The container's FPAQ batch on the CPU at any stream count (its gate
+    sends it to a CUDA card only), and kanzi_tpu's opt-in batch."""
+    monkeypatch.setattr(cs, "_fpaq_on_device", lambda dev, lens: True)
+    monkeypatch.setenv("KANZI_TPU_FPAQ", "1")
+    tops.enable()
+    kops.enable()
+    tops.reset_counters()
+    yield
+    tops.enable()
+    kops.enable()
+
+
+def _streams(seed, lens):
+    """Text-like, random and skewed rows, zero past each length."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((len(lens), max(lens)), np.uint8)
+    for i, n in enumerate(lens):
+        kind = i % 3
+        if kind == 0:
+            row = rng.integers(97, 123, n)
+        elif kind == 1:
+            row = rng.integers(0, 256, n)
+        else:
+            row = np.minimum(rng.geometric(0.1, n), 255)
+        out[i, :n] = row
+    return out
+
+
+def _bank_data(n):
+    """A block of n bytes whose every FPAQ chunk boundary byte is >= 64,
+    so a bank carried across a boundary would show (the regression of
+    tests/test_fpaq_device_path.py)."""
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    data[: n // 2] = rng.integers(97, 123, n // 2, dtype=np.uint8)
+    for k in range(1, -(-n // CH)):
+        data[k * CH - 1] = 200
+    return data
+
+
+def _assert_batch_equal(got, ref):
+    """The port's (bufs, low56, win_words, win_low) == kanzi_tpu's
+    outputs of the same names (its overflow list, ref[2], has none)."""
+    assert not any(ref[2])
+    names = ("bufs", "low56", "win_words", "win_low")
+    for name, g, r in zip(names, got, (ref[0], ref[1], ref[3], ref[4])):
+        if isinstance(r, np.ndarray):
+            assert g.shape == r.shape and g.dtype == r.dtype, name
+            assert np.array_equal(g, r), name
+        else:
+            assert g == r, name
+
+
+def test_encode_batch_matches_jax_model(jf):
+    """Every output == kanzi_tpu.ops.fpaq._encode_batch_np's, at three
+    streams of 2-4.5 KiB with 2 KiB FPAQ chunks (the bank reset
+    crossed)."""
+    lens = np.array([2048, 3000, 4608])
+    streams = _streams(3, lens)
+    tops.reset_counters()
+    got = tf.fpaq_encode_batch(streams, lens, CH, "cpu")
+    assert tops.COUNTERS == {"fpaq_encode_plain": 1}
+    _assert_batch_equal(got, jf._encode_batch_np(streams, lens,
+                                                 chunk_bytes=CH))
+
+
+def test_fpaq_batch_byte_identical(fpaq_device):
+    """Three 4 KiB blocks of mixed content in one plain launch: the
+    container == the port's host path and kanzi_tpu's device batch
+    (its numpy model here), and it decodes."""
+    rng = np.random.default_rng(42)
+    data = (b"abab" * 1024 + rng.integers(0, 256, 4096, dtype=np.uint8)
+            .tobytes() + bytes(3000))
+    blob = kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
+                                          block_size=4096, device="cpu")
+    assert tops.COUNTERS == {"fpaq_encode_plain": 1}, tops.COUNTERS
+    kops.reset_counters()
+    assert blob == kanzi_tpu.compress_bytes(data, "NONE", "FPAQ",
+                                            block_size=4096)
+    assert kops.COUNTERS.get("fpaq_encode_device", 0) >= 3, kops.COUNTERS
+    tops.disable()
+    assert blob == kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
+                                                  block_size=4096)
+    assert kanzi_tpu_torch.decompress_bytes(blob) == data
+
+
+def test_fpaq_multichunk_bank_reset(fpaq_device, monkeypatch):
+    """A block of four 2 KiB FPAQ chunks (the last partial): the bank
+    context resets to probs[0] at every chunk start while the
+    probabilities and low/high carry across. The prepared payload, as
+    emit_prepared writes it, == the scalar host coder's with the same
+    chunk size, and == kanzi_tpu's prepared payload under the same
+    patch (the chunk size is a wire constant: only its framing is
+    patched here)."""
+    monkeypatch.setattr(cs, "FPAQ_CHUNK", CH)
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    monkeypatch.setattr(ref_cs, "FPAQ_CHUNK", CH)
+    n = 3 * CH + 513
+    data = _bank_data(n)
+    st, ref_st = ({"e_type": cs.FPAQ_TYPE, "mode": 0, "post_len": n,
+                   "out": data, "prepared_entropy": None} for _ in range(2))
+    cs.prepare_fpaq_batch([st], Context({"device": "cpu"}))
+    ref_cs.prepare_fpaq_batch([ref_st])
+    assert st["prepared_entropy"] == ref_st["prepared_entropy"]
+    chunk_bufs, bound_lows, _final = st["prepared_entropy"]
+    assert len(chunk_bufs) == 4 and len(bound_lows) == 3
+
+    obs_dev = BitWriter()
+    low = fq.emit_prepared(obs_dev, st["prepared_entropy"])
+    obs_dev.write_bits(low | fq.MASK_0_24, 56)      # dispose
+    obs_ref = BitWriter()
+    enc = fq.FPAQEncoder(obs_ref)
+    enc.encode(data)
+    enc.dispose()
+    assert obs_dev.getvalue() == obs_ref.getvalue()
+
+
+def test_fpaq_batch_gate():
+    """The FPAQ batch goes to a CUDA card only, and only where its blocks,
+    weighted by length, reach FPAQ_MIN_STREAMS; on the CPU the container
+    codes FPAQ on the host and launches nothing."""
+    n, mib = cs.FPAQ_MIN_STREAMS, 1 << 20
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert cs._fpaq_on_device(cuda, [4 * mib] * n)
+    assert not cs._fpaq_on_device(cuda, [4 * mib] * (n - 1))
+    assert not cs._fpaq_on_device(cuda, [4 * mib] * (n - 1) + [mib])
+    assert cs._fpaq_on_device(cuda, [4 * mib] * (n - 1) + [4 * mib, 1])
+    assert not cs._fpaq_on_device(cuda, [])
+    assert not cs._fpaq_on_device(cpu, [4 * mib] * 64)
+    rng = np.random.default_rng(1)
+    data = rng.integers(0, 256, (n + 1) * 1024, dtype=np.uint8).tobytes()
+    tops.reset_counters()
+    blob = kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
+                                          block_size=1024, device="cpu")
+    assert tops.COUNTERS == {}
+    assert kanzi_tpu_torch.decompress_bytes(blob, device="cpu") == data
+
+
+def test_stream_over_its_region_is_relaunched(jf, fpaq_device, monkeypatch):
+    """A stream that emits more flush words than its region holds is
+    launched again with a region of MAX_REGION_W words a window: the
+    outputs equal the one-launch outputs (kanzi_tpu's model), and the
+    container still writes the host path's bytes."""
+    lens = np.array([1024, 1536])
+    streams = _streams(5, lens)
+    ref = jf._encode_batch_np(streams, lens, chunk_bytes=CH)
+    monkeypatch.setattr(tf, "REGION_W", 4)
+    tops.reset_counters()
+    got = tf.fpaq_encode_batch(streams, lens, CH, "cpu")
+    assert tops.COUNTERS == {"fpaq_encode_plain": 2}
+    assert (got[2] > 4).any()
+    _assert_batch_equal(got, ref)
+    data = streams[0, :lens[0]].tobytes()
+    tops.reset_counters()
+    blob = kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
+                                          block_size=4096, device="cpu")
+    assert tops.COUNTERS == {"fpaq_encode_plain": 2}
+    tops.disable()
+    assert blob == kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
+                                                  block_size=4096)
+
+
+def test_wrapper_checks_its_inputs():
+    streams = torch.zeros((2, 1024), dtype=torch.uint8)
+    lens = torch.full((2,), 1024, dtype=torch.int64)
+    with pytest.raises(ValueError, match="multiple"):
+        tf.fpaq_encode(streams[:, :1000], lens, 4, 512)
+    with pytest.raises(ValueError, match="cap"):
+        tf.fpaq_encode(streams, lens, 4, -1)
+    with pytest.raises(ValueError, match="lens"):
+        tf.fpaq_encode(streams, lens.int(), 4, 512)
+    with pytest.raises(ValueError, match="no kernel"):
+        tf.fpaq_encode(streams.to("meta"), lens.to("meta"), 4, 512)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.needs_cuda
+def test_kernel_matches_plain_on_cuda(cuda_device):
+    """Kernel G against its plain version on the card: 40 streams of up
+    to 2 KiB (two blocks of 32, ragged lengths, one empty) with 1 KiB
+    chunks, with the first launch's region and with one of 3 words (the
+    words past it dropped, all of them counted)."""
+    lens = np.random.default_rng(2).integers(0, 2049, 40)
+    lens[:3] = [2048, 0, 1]
+    streams = torch.from_numpy(_streams(4, lens.tolist()))
+    args = (streams.to(cuda_device),
+            torch.from_numpy(lens).to(cuda_device), 2)
+    for cap in (streams.shape[1] // tf.WIN_B * tf.REGION_W, 3):
+        got = tf.fpaq_encode(*args, cap)
+        ref = tf.fpaq_encode_plain(*args, cap)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)

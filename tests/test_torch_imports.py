@@ -47,6 +47,54 @@ def test_roundtrip_imports_no_jax(level):
     assert "FOREIGN_MODULES []" in r.stdout, r.stdout
 
 
+_FPAQ_DEVICE = """
+import sys
+import numpy as np
+import kanzi_tpu_torch as k
+import kanzi_tpu_torch.ops.ans1, kanzi_tpu_torch.ops.fpaq
+import kanzi_tpu_torch.io.compressed_stream as cs
+import kanzi_tpu_torch.ops as ops
+cs._fpaq_on_device = lambda dev, lens: True
+rng = np.random.default_rng(1)
+data = b"fpaq " * 600 + rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+blob = k.compress_bytes(data, "NONE", "FPAQ", block_size=4096, device="cpu")
+assert ops.COUNTERS == {"fpaq_encode_plain": 1}, ops.COUNTERS
+assert k.decompress_bytes(blob, device="cpu") == data
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+def test_fpaq_device_path_imports_no_jax():
+    """-t NONE -e FPAQ through the container's FPAQ batch (its gate
+    opened, so the FPAQ encode's plain version runs on the CPU), after
+    importing the ANS1 and FPAQ ops, leaves
+    no jax* and no kanzi_tpu module in sys.modules."""
+    r = subprocess.run([sys.executable, "-c", _FPAQ_DEVICE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FOREIGN_MODULES []" in r.stdout, r.stdout
+
+
+def test_csrc_sources_are_bound():
+    """Every CUDA source in csrc/ is built and bound by ops/_build.py, each
+    bound launcher is an extern "C" function of its source, and no source
+    includes PyTorch's headers (which would make nvcc take minutes)."""
+    from kanzi_tpu_torch.ops import _build
+    csrc = ROOT / "kanzi_tpu_torch" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(
+        _build.SIGNATURES)
+    for source, launchers in _build.SIGNATURES.items():
+        text = (csrc / source).read_text()
+        assert 'extern "C"' in text and "kanzi_cuda_error_string" in text
+        assert "torch/" not in text and "ATen" not in text, source
+        for name, argtypes in launchers.items():
+            m = re.search(rf"^int {name}\(([^)]*)\)", text, re.M)
+            assert m, f"{source}: no launcher {name}"
+            assert m.group(1).count(",") + 1 == len(argtypes), name
+
+
 _FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|kanzi_tpu[. ]|"
                              r"kanzi_tpu$)")
 
