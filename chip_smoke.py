@@ -21,15 +21,20 @@ Phases (each raises on failure, so any failure exits non-zero):
    against their plain versions on the card, timed once, at shapes
    those finish in seconds (F: 16 chunks of 64 KiB; G: 64 streams of 8
    KiB with 2 KiB FPAQ chunks); against their plain versions run on the
-   host's CPU, in two worker processes of this script started after
-   phase 3 and read before phase 8, at the container's launch shape of F
+   host's CPU, in worker processes of this script started after phase 3
+   and read before phase 9, at the container's launch shape of F
    (one 4 MiB chunk) and at the main path's 16 streams and 4 MiB FPAQ
    chunks for G, cut to their first 256 KiB (a plain run over 4 MiB is 32M
    bit steps, about an hour); and they are timed at the main path's
    shape (the corpus as 16 chunks, resp. 16 streams, of 4 MiB), where
    their output is held against the port's native host coders
    (native.ans1_enc_block, the native FPAQ coder, which is timed too:
-   the crossover stream count of the container's FPAQ gate);
+   the crossover stream count of the container's FPAQ gate). The SBRT
+   kernel the same way: against its plain version on the card at 16
+   blocks of 16 KiB in all three modes, both ways; in a third worker at
+   the level-5 chain's RANK input (the corpus's 16 blocks of 4 MiB
+   through the device BWT and its header) cut to 256 KiB a block, RANK
+   both ways; and timed at that whole input against native.sbrt;
 5. the four container paths, each with the launch counters reset just
    before and read just after: the corpus through kanzi_tpu_torch's
    container with -e ANS0, -e HUFFMAN, -e ANS1 and -e FPAQ (-t NONE,
@@ -49,7 +54,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    counters reset just before and read just after), on the card and
    then on the host path: the outputs byte-identical, every kernel of
    the level's path launched, both rates printed side by side;
-8. require that neither jax nor kanzi_tpu was imported.
+8. the device level-5 chain (kanzi_tpu_torch.parallel.pipeline): the
+   corpus through compress_l5_mesh and decompress_l5_mesh at 4 MiB
+   blocks, the counters reset before and read after each; require the
+   container byte-identical with the host writer's (the same chain with
+   kanzi_tpu_torch.ops disabled), both decodes to return the input, the
+   SBRT kernel launched both ways, A, B and C launched and at least one
+   block through the device chain; the device BWT of one block held
+   against native.bwt_forward; both rates beside the host path's, and
+   one torch.profiler / cProfile breakdown of each direction; then the
+   fused chain of kanzi_tpu's bench (pipeline.l5_chain: BWT, RANK, ZRLT
+   and the ANS0 encode of 16 blocks of 1 MiB on the card), in MiB/s;
+9. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, its largest difference from the plain version, its time,
@@ -77,15 +93,22 @@ SEED = 20261016
 BLOCK = 4 * MiB
 N_CHUNKS = 4096                     # 64 MiB = one device call of the writer
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
-# 32-bit scalar rate outside the tensor cores (H100 SXM data sheet, fp32);
-# the kernels' work is 32-bit integer ALU operations
-SCALAR_OPS_PER_S = 67e12
+# The kernels' work is 32-bit integer ALU operations. The H100 SXM data
+# sheet's 67e12 fp32 rate counts an FMA as two operations on 128 fp32
+# lanes an SM; an SM has 64 INT32 lanes (NVIDIA's Hopper architecture
+# whitepaper), so its integer issue rate is a quarter of that.
+INT32_OPS_PER_S = 67e12 / 4
 # integer operations per symbol (per slot for the compaction, per input
 # byte for FPAQ: 8 bit steps of ~24, 64-bit operations counted twice),
-# counted from the kernels' inner loops
+# counted from the kernels' inner loops; for SBRT per step of the host
+# automaton (transform/sbrt.py): read the symbol and its rank, write the
+# output, qc (and, and, add, shift), set p, q and the symbol's new rank
 OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
        "huff_encode_scan": 14, "huff_decode": 8, "ans1_encode_scan": 20,
-       "fpaq_encode": 8 * 24}
+       "fpaq_encode": 8 * 24, "sbrt": 10}
+# and per rank its walk visits: test r > 0, read the symbol below and its
+# q, compare, move it up (two writes)
+SBRT_VISIT_OPS = 6
 REPLACES = {
     "ans0_encode_scan": ("ans0.cu", "kanzi_tpu/ops/ans.py:120"),
     "ans0_compact": ("ans0.cu", "kanzi_tpu/ops/ans.py:210"),
@@ -95,11 +118,17 @@ REPLACES = {
     "ans1_encode_scan": ("ans1.cu", "kanzi_tpu/ops/ans1.py:142, "
                                     "kanzi_tpu/ops/ans1.py:221"),
     "fpaq_encode": ("fpaq.cu", "kanzi_tpu/ops/fpaq.py:286"),
+    "sbrt": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
 }
 SMALL_ANS1 = (16, 64 << 10)         # F against its plain version
 SMALL_FPAQ = (64, 8 << 10, 2048)    # G: streams, bytes, FPAQ chunk bytes
 HOST_FPAQ_BYTES = 256 << 10         # G's plain run on the CPU: each of the
                                     # 16 main-path streams' first bytes
+SMALL_SBRT = 16 << 10               # SBRT against its plain version on the
+                                    # card: 16 blocks of this many bytes
+HOST_SBRT_BYTES = 256 << 10         # and on the CPU: each RANK input's
+                                    # first bytes
+L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
 WORK = ROOT / "build" / "chip_smoke"
 
 
@@ -201,10 +230,10 @@ def nbytes(*ts) -> int:
 def bound(name: str, moved: int, items: int, extra_ops: int = 0) -> dict:
     """The least time the card could take: bytes moved (each input read
     once, each output written once) over the memory rate, or the
-    operations (OPS per item, plus extra_ops) over the scalar rate,
+    operations (OPS per item, plus extra_ops) over the integer rate,
     whichever is larger."""
     t_bytes = 1000 * moved / HBM_BYTES_PER_S
-    t_ops = 1000 * (OPS[name] * items + extra_ops) / SCALAR_OPS_PER_S
+    t_ops = 1000 * (OPS[name] * items + extra_ops) / INT32_OPS_PER_S
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -382,10 +411,14 @@ def plain_worker(path: Path) -> None:
     sys.path.insert(0, str(ROOT))
     from kanzi_tpu_torch.ops import ans1 as dans1
     from kanzi_tpu_torch.ops import fpaq as dfp
+    from kanzi_tpu_torch.ops import sbrt as dsb
     a = torch.load(path)
     t0 = time.perf_counter()
     if a["kind"] == "ans1_encode_scan":
         out = dans1.ans1_encode_scan_plain(a["chunks"], a["table"], a["lut"])
+    elif a["kind"] == "sbrt":
+        fwd = dsb.sbrt_plain(a["blocks"], a["lens"], dsb.MODE_RANK, False)
+        out = (fwd, dsb.sbrt_plain(fwd, a["lens"], dsb.MODE_RANK, True))
     else:
         out = dfp.fpaq_encode_plain(a["streams"], a["lens"], a["chunk_win"],
                                     a["cap"])
@@ -393,9 +426,9 @@ def plain_worker(path: Path) -> None:
                path.with_suffix(".out"))
 
 
-def start_plain_workers(corpus, dans1, dfp, native) -> dict:
-    """Save the full-shape inputs of F and G (see phase 4) and start one
-    worker process on each. Returns {kernel: (inputs, process)}."""
+def start_plain_workers(corpus, dans1, dfp, native, rank_in) -> dict:
+    """Save the full-shape inputs of F, G and SBRT (see phase 4) and start
+    one worker process on each. Returns {kernel: (inputs, process)}."""
     host = np.frombuffer(corpus[:dans1.CHUNK1], np.uint8)[None]
     f_in = {"kind": "ans1_encode_scan",
             "chunks": torch.from_numpy(host.copy()),
@@ -410,8 +443,12 @@ def start_plain_workers(corpus, dans1, dfp, native) -> dict:
                                dtype=torch.int64),
             "chunk_win": dfp.CHUNK_B // dfp.WIN_B,
             "cap": HOST_FPAQ_BYTES // dfp.WIN_B * dfp.REGION_W}
+    s_in = {"kind": "sbrt",
+            "blocks": rank_in[:, :HOST_SBRT_BYTES].cpu().contiguous(),
+            "lens": torch.full((len(rank_in),), HOST_SBRT_BYTES,
+                               dtype=torch.int64)}
     workers = {}
-    for a in (f_in, g_in):
+    for a in (f_in, g_in, s_in):
         path = WORK / f"plain_{a['kind']}.pt"
         torch.save(a, path)
         err = open(path.with_suffix(".err"), "w")
@@ -424,8 +461,8 @@ def start_plain_workers(corpus, dans1, dfp, native) -> dict:
 
 def finish_plain_workers(workers, full_got, kres) -> None:
     """Wait for the workers, hold the kernels' outputs on the same
-    inputs (full_got) against theirs and fold the difference into
-    kres' max_abs_err."""
+    inputs (full_got) against theirs, fold the difference into kres'
+    max_abs_err and fail on any."""
     for k, (a, proc) in workers.items():
         path = WORK / f"plain_{k}.pt"
         if proc.wait(timeout=900) != 0:
@@ -433,10 +470,14 @@ def finish_plain_workers(workers, full_got, kres) -> None:
                  f"{path.with_suffix('.err').read_text()[-2000:]}")
         res = torch.load(path.with_suffix(".out"))
         err = max(max_abs_err(g, r) for g, r in zip(full_got[k], res["out"]))
-        shape = "x".join(map(str, (a.get("chunks", a.get("streams"))).shape))
+        shape = "x".join(map(str, next(
+            a[key] for key in ("chunks", "streams", "blocks")
+            if key in a).shape))
         log(f"kernel {k}: max_abs_err {err} against its plain version on "
             f"the host's CPU at [{shape}] (plain {res['seconds']:.3f} s)")
         kres[k]["err"] = max(kres[k]["err"], err)
+        if err != 0:
+            fail(f"{k} differs from its plain version on the host's CPU")
 
 
 def ans1_freqs(host_chunks, native):
@@ -561,6 +602,187 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
         **bound("fpaq_encode", moved, streams.numel()))}
 
 
+def l5_rank_inputs(corpus, pp, dev):
+    """The RANK input of the level-5 chain's blocks: the corpus's 4 MiB
+    blocks through the device BWT and its block-codec header, [16, 4 MiB
+    + 33] uint8 on the card."""
+    blocks = torch.frombuffer(bytearray(corpus), dtype=torch.uint8).view(
+        -1, BLOCK).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rank_in = pp._bwt_codec(blocks)
+    torch.cuda.synchronize()
+    log(f"device BWT and header of {len(blocks)} blocks of 4 MiB "
+        f"(pipeline._bwt_codec): {time.perf_counter() - t0:.3f} s")
+    return rank_in
+
+
+def sbrt_visits(x, ranks, m1: int, m2: int, shift: int) -> int:
+    """The ranks that the host automaton's walks visit on x [B, M] uint8
+    (whole rows, the mode's masks and shift), given its forward output
+    `ranks`: per step the ranks a symbol passes on its way down, plus
+    the one that stops it. The rank list stays sorted by q, highest
+    first, and qc never falls below the symbol's old q, so a symbol
+    stops at new_r = the number of other symbols whose q exceeds qc. So
+    the sum needs no walk: each step's qc from the symbol's previous
+    position (a sort by symbol, then position), each symbol's q before
+    every step (a running maximum), and new_r counted symbol by
+    symbol."""
+    b, m = x.shape
+    idx = torch.arange(m, device=x.device).expand(b, m)
+    c = x.long()
+
+    def after(t, fill):                 # t[:, i - 1] at column i
+        return torch.cat([torch.full_like(t[:, :1], fill), t[:, :-1]], 1)
+
+    order = (c * m + idx).argsort(dim=1)
+    sc = c.gather(1, order)
+    prev = torch.where(sc == after(sc, -1), after(order, 0), 0)
+    p_prev = torch.empty_like(c).scatter_(1, order, prev)
+    del order, sc, prev
+    qc = ((idx & m1) + (p_prev & m2)) >> shift
+    del p_prev
+    new_r = torch.zeros_like(c)
+    for s in range(256):
+        mine = c == s
+        q_s = after(torch.where(mine, qc, 0).cummax(1).values, 0)
+        new_r += (q_s > qc) & ~mine
+    walked = ranks.long() - new_r
+    if bool((walked < 0).any()):
+        fail("sbrt_visits: a symbol moved up")
+    return int(walked.sum() + (new_r > 0).sum())
+
+
+def check_sbrt_kernel(rank_in, dsb, native, s_in, full_got) -> dict:
+    """SBRT against its plain version on the card at 16 x SMALL_SBRT (the
+    RANK inputs' first bytes) in all three modes, both ways; then timed
+    at the whole RANK input both ways, held against native.sbrt (timed
+    too, block by block on the host). Its outputs on s_in go to full_got
+    for the plain worker's check."""
+    dev = rank_in.device
+    small = rank_in[:, :SMALL_SBRT].contiguous()
+    lens = torch.full((len(small),), SMALL_SBRT, dtype=torch.int64,
+                      device=dev)
+    err, plain_ms = 0, None
+    for mode in (1, 2, 3):
+        for inverse in (False, True):
+            src = small if not inverse else dsb.sbrt(small, lens, mode, False)
+            got = dsb.sbrt(src, lens, mode, inverse)
+            ref, ms = once_ms(lambda: dsb.sbrt_plain(src, lens, mode,
+                                                     inverse))
+            err = max(err, max_abs_err(got, ref))
+            if mode == dsb.MODE_RANK and not inverse:
+                plain_ms = ms
+    x = s_in["blocks"].to(dev)
+    lx = s_in["lens"].to(dev)
+    fwd = dsb.sbrt(x, lx, dsb.MODE_RANK, False)
+    full_got["sbrt"] = [fwd.cpu(),
+                        dsb.sbrt(fwd, lx, dsb.MODE_RANK, True).cpu()]
+    del x, lx, fwd
+
+    b, m = rank_in.shape
+    lens = torch.full((b,), m, dtype=torch.int64, device=dev)
+    ms = median_ms(lambda: dsb.sbrt(rank_in, lens, dsb.MODE_RANK, False), 3)
+    fwd = dsb.sbrt(rank_in, lens, dsb.MODE_RANK, False)
+    ms_inv = median_ms(lambda: dsb.sbrt(fwd, lens, dsb.MODE_RANK, True), 3)
+    inv = dsb.sbrt(fwd, lens, dsb.MODE_RANK, True)
+    if not torch.equal(inv, rank_in):
+        fail("sbrt: the inverse does not give back the RANK input")
+    host_in, host_fwd = rank_in.cpu().numpy(), fwd.cpu().numpy()
+    host_s = [0.0, 0.0]
+    for i in range(b):
+        for k, (src, want) in enumerate(((host_in[i], host_fwd[i]),
+                                         (host_fwd[i], host_in[i]))):
+            t0 = time.perf_counter()
+            h = native.sbrt(src, dsb.MODE_RANK, inverse=k == 1)
+            host_s[k] += time.perf_counter() - t0
+            if not np.array_equal(h, want):
+                fail(f"sbrt: block {i} differs from native.sbrt "
+                     f"({'inverse' if k else 'forward'})")
+    visits = sbrt_visits(rank_in, fwd, *dsb._MODES[dsb.MODE_RANK])
+    log(f"kernel sbrt: {b} blocks of {m} bytes (the level-5 RANK input), "
+        f"one step a byte: forward kernel_ms {ms} ({1e6 * ms / m:.2f} ns "
+        f"per dependent step), inverse {ms_inv} ({1e6 * ms_inv / m:.2f} "
+        f"ns); native.sbrt on the host, {b} blocks one after another: "
+        f"forward {1000 * host_s[0]:.3f} ms, inverse "
+        f"{1000 * host_s[1]:.3f} ms; bytes == native.sbrt's both ways; "
+        f"plain_ms {plain_ms} at {b} x {SMALL_SBRT >> 10} KiB (once); the "
+        f"host automaton's walks visit {visits} ranks "
+        f"({visits / rank_in.numel():.3f} a step)")
+    return {"sbrt": dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound("sbrt", nbytes(rank_in, lens, fwd), rank_in.numel(),
+                SBRT_VISIT_OPS * visits))}
+
+
+def check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate) -> None:
+    """Phase 8: the device level-5 chain on the corpus against the host
+    path, then the fused chain's rate."""
+    import kanzi_tpu_torch
+    import kanzi_tpu_torch.ops as ops
+    dev = torch.device("cuda", 0)
+    block = np.frombuffer(corpus[:BLOCK], np.uint8)
+    out, idx = dbwt.bwt_forward(block, 8, dev)
+    nat, nat_idx = native.bwt_forward(block, 8)
+    if not (np.array_equal(out, nat) and list(idx) == list(nat_idx)):
+        fail("the device bwt_forward differs from native.bwt_forward")
+    log("device bwt_forward of one 4 MiB block == native.bwt_forward "
+        "(bytes and the 8 primary indexes)")
+
+    ops.reset_counters()
+    blob, t_enc = timed(pp.compress_l5_mesh, corpus, BLOCK)
+    enc = dict(ops.COUNTERS)
+    ops.reset_counters()
+    back, t_dec = timed(pp.decompress_l5_mesh, blob)
+    dec = dict(ops.COUNTERS)
+    log(f"device level-5 chain ({pp.CHAIN} & {pp.ENTROPY}, 4 MiB blocks): "
+        f"{len(corpus)} -> {len(blob)} bytes, encode {rate(t_enc)} "
+        f"({t_enc:.3f} s), decode {rate(t_dec)} ({t_dec:.3f} s); "
+        f"{enc.get('l5_encode_device_blocks', 0)} of "
+        f"{len(corpus) // BLOCK} blocks through the device chain on encode, "
+        f"{dec.get('l5_decode_device_blocks', 0)} on decode; launches: "
+        f"encode {enc}, decode {dec}")
+    if back != corpus:
+        fail("decompress_l5_mesh does not return the input")
+    if kanzi_tpu_torch.decompress_bytes(blob) != corpus:
+        fail("decompress_bytes of the level-5 chain's container differs "
+             "from the input")
+    for k, counts in (("sbrt", enc), ("ans0_encode_scan", enc),
+                      ("ans0_compact", enc), ("sbrt", dec),
+                      ("ans0_decode", dec)):
+        if counts.get(k, 0) < 1:
+            fail(f"kernel {k} was not launched by the device level-5 chain")
+        launches[k] = launches.get(k, 0) + counts[k]
+    if enc.get("l5_encode_device_blocks", 0) < 1:
+        fail("no block took the device level-5 chain")
+    ops.disable()
+    try:
+        host, t_henc = timed(kanzi_tpu_torch.compress_bytes, corpus,
+                             pp.CHAIN, pp.ENTROPY, block_size=BLOCK)
+        _, t_hdec = timed(kanzi_tpu_torch.decompress_bytes, host)
+    finally:
+        ops.enable()
+    log(f"level-5 chain host path (native C++, one thread): encode "
+        f"{rate(t_henc)} ({t_henc:.3f} s), decode {rate(t_hdec)} "
+        f"({t_hdec:.3f} s)")
+    if blob != host:
+        fail("the device level-5 chain's container differs from the host "
+             "writer's")
+    profile("device level-5 chain encode",
+            lambda: pp.compress_l5_mesh(corpus, BLOCK))
+    profile("device level-5 chain decode",
+            lambda: pp.decompress_l5_mesh(blob))
+
+    b, n = L5_CHAIN
+    blocks = torch.frombuffer(bytearray(corpus[:b * n]),
+                              dtype=torch.uint8).view(b, n).to(dev)
+    pp.l5_chain(blocks)
+    best = min(timed(pp.l5_chain, blocks)[1] for _ in range(3))
+    log(f"fused level-5 chain (pipeline.l5_chain: BWT + header, RANK, ZRLT, "
+        f"ANS0 encode of {b} blocks of {n >> 20} MiB on the card, best of "
+        f"3): {b * n / MiB / best:.1f} MiB/s ({best:.3f} s)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script runs only "
@@ -584,8 +806,11 @@ def run(workers: dict) -> None:
     from kanzi_tpu_torch.ops import _build
     from kanzi_tpu_torch.ops import ans as dans
     from kanzi_tpu_torch.ops import ans1 as dans1
+    from kanzi_tpu_torch.ops import bwt as dbwt
     from kanzi_tpu_torch.ops import fpaq as dfp
     from kanzi_tpu_torch.ops import huffman as dhuff
+    from kanzi_tpu_torch.ops import sbrt as dsb
+    from kanzi_tpu_torch.parallel import pipeline as pp
     from kanzi_tpu_torch.utils import native
 
     # 1. the card
@@ -605,15 +830,17 @@ def run(workers: dict) -> None:
     for so in libs:
         log(so.with_suffix(".log").read_text().strip())
 
-    # 3. corpus; the plain workers of F and G start on it
+    # 3. corpus and the level-5 chain's RANK input; the plain workers of
+    # F, G and SBRT start on them
     corpus = make_corpus(N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
+    dev = torch.device("cuda", 0)
+    rank_in = l5_rank_inputs(corpus, pp, dev)
     WORK.mkdir(parents=True, exist_ok=True)
-    workers.update(start_plain_workers(corpus, dans1, dfp, native))
+    workers.update(start_plain_workers(corpus, dans1, dfp, native, rank_in))
     full_got = {}
 
     # 4. kernels against their plain versions at the main path's shape
-    dev = torch.device("cuda", 0)
     chunks = torch.frombuffer(bytearray(corpus), dtype=torch.uint8).view(
         N_CHUNKS, dans.CHUNK).to(dev)
     kres = check_ans0_kernels(chunks, dans)
@@ -623,12 +850,17 @@ def run(workers: dict) -> None:
                                   workers["ans1_encode_scan"][0], full_got))
     kres.update(check_fpaq_kernel(corpus, dfp, native, dev,
                                   workers["fpaq_encode"][0], full_got))
+    kres.update(check_sbrt_kernel(rank_in, dsb, native,
+                                  workers["sbrt"][0], full_got))
+    del rank_in
     torch.cuda.empty_cache()
     for k, r in kres.items():
         shape = {"ans1_encode_scan": "16 chunks of 4 MiB; plain on the "
                                      "card at 16 x 64 KiB",
                  "fpaq_encode": "16 streams of 4 MiB; plain on the card "
-                                "at 64 x 8 KiB"
+                                "at 64 x 8 KiB",
+                 "sbrt": "16 RANK inputs of 4 MiB + 33, forward; plain on "
+                         "the card at 16 x 16 KiB"
                  }.get(k, f"C={N_CHUNKS}")
         log(f"kernel {k}: max_abs_err {r['err']} kernel_ms {r['ms']} "
             f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
@@ -770,10 +1002,13 @@ def run(workers: dict) -> None:
             f"{mib['host'][0]:.1f}), decompress {mib['card'][1]:.1f} MiB/s "
             f"(host path {mib['host'][1]:.1f})")
 
-    # F and G against their plain versions on the host's CPU
+    # 8. the device level-5 chain, and the fused chain
+    check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate)
+
+    # F, G and SBRT against their plain versions on the host's CPU
     finish_plain_workers(workers, full_got, kres)
 
-    # 8. no JAX, nothing of the JAX package
+    # 9. no JAX, nothing of the JAX package
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
     if foreign:

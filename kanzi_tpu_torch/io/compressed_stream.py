@@ -395,8 +395,14 @@ def prepare_ans0_batch(states: list, ctx: Context) -> None:
     chunks = np.concatenate(
         [st["out"][:n * dans.CHUNK].reshape(n, dans.CHUNK)
          for st, n in zip(elig, counts)])
-    hdr, bitlen, m, flat, plen = dans.encode_chunks_np(chunks,
-                                                       coding_device(ctx))
+    _stash_ans0(elig, counts, dans.encode_chunks_np(chunks,
+                                                    coding_device(ctx)))
+
+
+def _stash_ans0(elig: list, counts: list, enc: tuple) -> None:
+    """Give each block of elig its slice of one encode_chunks_np result
+    over all of their full chunks (counts[i] chunks for elig[i])."""
+    hdr, bitlen, m, flat, plen = enc
     offs = np.cumsum(plen) - plen
     pos = 0
     for st, n in zip(elig, counts):
@@ -551,7 +557,6 @@ class CompressedWriter:
         self.ctx = ctx.copy() if ctx is not None else Context()
         self.transform_type = tfactory.transform_name_to_type(transform)
         self.entropy_type = efactory.entropy_name_to_type(entropy)
-        tfactory.check_transform(self.transform_type)
         if device is not None:
             self.ctx.put("device", str(device))
         self.ctx.put("entropy", efactory.entropy_type_to_name(self.entropy_type))
@@ -569,8 +574,9 @@ class CompressedWriter:
         self._obs = BitWriter(sink=out)
         self._header_written = False
         self._closed = False
-        # per task-slot persistent buffer capacities [input, work]
-        self._slot_caps = [[0, 0] for _ in range(jobs)]
+        # per task-slot persistent buffer capacities [input, work]; block
+        # b (from 1) runs in slot (b - 1) % jobs
+        self.slot_caps = [[0, 0] for _ in range(jobs)]
         # cross-block device batching: queue phase-1 states and run one
         # device call for all queued blocks' entropy chunks (TPU analog of
         # the reference's EncodingTask fan-out); bounded by bytes queued
@@ -665,7 +671,7 @@ class CompressedWriter:
                     results[i] = _encode_block_phase1(
                         block, bid, self.ctx, self.transform_type,
                         self.entropy_type, self.checksum_bits,
-                        self.listeners, slot_caps=self._slot_caps[slot])
+                        self.listeners, slot_caps=self.slot_caps[slot])
 
             with ThreadPoolExecutor(max_workers=self.jobs) as ex:
                 list(ex.map(run_slot, by_slot.values()))
@@ -675,11 +681,19 @@ class CompressedWriter:
                 _encode_block_phase1(
                     block, bid, self.ctx, self.transform_type,
                     self.entropy_type, self.checksum_bits, self.listeners,
-                    slot_caps=self._slot_caps[slot])
+                    slot_caps=self.slot_caps[slot])
                 for block, bid, slot in work]
         prepare_ans0_batch(states, self.ctx)
         prepare_huffman_batch(states, self.ctx)
         prepare_fpaq_batch(states, self.ctx)
+        self.commit_states(states)
+
+    def commit_states(self, states: list) -> None:
+        """Write the header if it is due, then each block's phase-1 state
+        (_encode_block_phase1, in block order, its batched entropy
+        prepared or not) through phase 2 into the stream. For a caller
+        that runs the blocks' stages itself and then close()s."""
+        self._write_header()
         verbose5 = self.ctx.get_int("verbosity", 0) > 4 and self.listeners
         for st in states:
             payload, bits = _encode_block_phase2(st, self.listeners)
@@ -752,7 +766,6 @@ class CompressedReader:
             self.bs_version = bs_version
         else:
             self._read_header()
-        tfactory.check_transform(self.transform_type)
         if device is not None:
             self.ctx.put("device", str(device))
         self.ctx.put("bsVersion", self.bs_version)

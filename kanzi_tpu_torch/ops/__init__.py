@@ -12,6 +12,8 @@ Layout:
 - ops.huffman  4-fragment canonical Huffman chunk encode/decode
 - ops.ans1     interleaved 4-lane rANS order-1 chunk encode
 - ops.fpaq     FPAQ binary arithmetic encode, one stream per block
+- ops.sbrt     SBRT (MTF / RANK / TIMESTAMP) rank automaton, one per block
+- ops.bwt      suffix array, BWT forward and inverse (torch ops, no kernel)
 - ops._build   nvcc build + ctypes binding of csrc/*.cu
 """
 
@@ -47,7 +49,9 @@ def device() -> torch.device:
 
 # Launch counters: a wrapper bumps its kernel's key where it launches the
 # kernel, and key + "_plain" where it takes the plain version for a CPU
-# tensor. Tests and chip_smoke.py read them to show which path ran.
+# tensor. The device BWT and the device level-5 chain count the blocks
+# they take ("bwt_forward_device", "l5_{encode,decode}_device_blocks").
+# Tests and chip_smoke.py read them to show which path ran.
 COUNTERS = {}
 _COUNT_LOCK = _threading.Lock()
 

@@ -60,6 +60,11 @@ SIGNATURES = {
         # win_low, device, stream
         "fpaq_encode": [_P, _P, _I, _L, _I, _L, _P, _P, _P, _I, _P],
     },
+    "sbrt.cu": {
+        # blocks, lens, n_blocks, ld, m1, m2, shift, inverse, out, device,
+        # stream
+        "sbrt": [_P, _P, _I, _L, _I, _I, _I, _I, _P, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,14 @@
+"""Block parallelism on the card.
+
+The reference's parallel model is pure block data-parallelism:
+independent blocks fan out to worker threads and commit to the shared
+bitstream in block order (src/io/CompressedOutputStream.cpp:476-546,
+835-868). Here a batch of blocks runs as one pass on the card and the
+host commits the container in block order. The "block" mesh has one
+device; more than one card is ROADMAP item 14.
+"""
+
+from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
+                                           shard_ans0_encode)
+
+__all__ = ["block_mesh", "shard_ans0_encode", "shard_ans0_decode"]

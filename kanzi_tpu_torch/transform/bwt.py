@@ -30,24 +30,29 @@ def get_bwt_chunks(size: int) -> int:
     return 1 if size < BLOCK_SIZE_THRESHOLD1 else 8
 
 
-def bwt_forward(src: np.ndarray):
-    """Returns (bwt bytes, indexes) from the native SA-IS library; small
-    inputs also run on the host suffix array without it."""
+def bwt_forward(src: np.ndarray, device=None):
+    """Returns (bwt bytes, indexes). Uses the native SA-IS library, else,
+    from 4096 bytes on, the device suffix array (kanzi_tpu_torch/ops/
+    bwt.py) on ``device`` (default: the card), else the host suffix
+    array; the suffix array is unique, so the output is the same."""
     n = len(src)
     if n > MAX_BLOCK_SIZE:
         raise ValueError("BWT: block too large")
     from kanzi_tpu_torch.utils import native as _native
     if n > 1 and _native.sais_available():
-        # native SA-IS is the fastest host path; the device suffix array
-        # (ops/bwt.py) is exercised by bench.py / dryrun_multichip
+        # native SA-IS is the fastest host path; the device level-5 chain
+        # (parallel/pipeline.py) runs the device suffix array
         out, idx = _native.bwt_forward(np.asarray(src, np.uint8),
                                        get_bwt_chunks(n))
         return out, idx
-    if n >= 4096:
-        # where the JAX package takes its device suffix array
-        raise RuntimeError("BWT needs the native SA-IS library "
-                           "(kanzi_tpu_torch/utils/native.py builds it "
-                           "with g++)")
+    import kanzi_tpu_torch.ops as ops
+    if n >= 4096 and ops.ENABLED:
+        from kanzi_tpu_torch.ops import bwt as dbwt
+        out, idx = dbwt.bwt_forward(np.asarray(src, np.uint8),
+                                    get_bwt_chunks(n),
+                                    device if device is not None
+                                    else ops.device())
+        return out, list(idx)
     return compute_bwt(src, get_bwt_chunks(n))
 
 
@@ -107,7 +112,7 @@ class BWTBlockCodec(ByteTransform):
             # BWT::forward copies single bytes; primary indexes stay 0
             out_bwt, indexes = src.copy(), [0]
         else:
-            out_bwt, indexes = bwt_forward(src)
+            out_bwt, indexes = bwt_forward(src, self.ctx.get("device"))
         mode = (log_nb_chunks << 2) | (p_index_size - 1)
         header = bytearray([mode])
         for i in range(chunks):

@@ -4,10 +4,6 @@ Mirrors TransformFactory<T> (src/transform/TransformFactory.hpp:49-308):
 8 x 6-bit transform ids packed MSB-first into 48 bits; "A+B+C" names;
 NONE tokens are elided during packing. TEXT picks its codec variant from
 the entropy backend (:228-243); DNA is PACK with packOnlyDNA=1 (:293-295).
-
-The container calls check_transform on the whole chain when a stream is
-opened: BWT and BWTS need the native SA-IS library here, where the JAX
-package falls back to its device suffix array.
 """
 
 from __future__ import annotations
@@ -93,18 +89,6 @@ def transform_type_to_name(ttype: int) -> str:
             raise ValueError(f"Unknown transform id: {tid}")
         names.append(_ID_TO_NAME[TransformType(tid)])
     return "+".join(names) if names else "NONE"
-
-
-def check_transform(ttype: int) -> None:
-    """Raise for a chain (48-bit packed descriptor) the port cannot run."""
-    from kanzi_tpu_torch.utils import native
-    for i in range(8):
-        t = TransformType((ttype >> (MAX_SHIFT - ONE_SHIFT * i)) & MASK)
-        if (t in (TransformType.BWT, TransformType.BWTS)
-                and not native.sais_available()):
-            raise RuntimeError(
-                f"{t.name} needs the native SA-IS library "
-                "(kanzi_tpu_torch/utils/native.py builds it with g++)")
 
 
 def _new_token(ctx: Context, tid: int):

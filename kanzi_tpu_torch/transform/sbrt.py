@@ -2,8 +2,8 @@
 
 Reference: src/transform/SBRT.cpp:22-145. q = ((i & m1) + (p[c] & m2)) >>
 shift with (m1, m2, shift) selecting MTF (alpha=0), RANK (alpha=1/2) or
-TIMESTAMP (alpha=1). A sequential symbol-rank state machine; the TPU path
-batches independent blocks (kanzi_tpu/ops).
+TIMESTAMP (alpha=1). A sequential symbol-rank state machine; the card's
+path (kanzi_tpu_torch/ops/sbrt.py) batches independent blocks.
 """
 
 from __future__ import annotations

@@ -77,6 +77,36 @@ def test_fpaq_device_path_imports_no_jax():
     assert "FOREIGN_MODULES []" in r.stdout, r.stdout
 
 
+_L5_DEVICE = """
+import sys
+import numpy as np
+import torch
+import kanzi_tpu_torch.ops as ops
+from kanzi_tpu_torch.parallel import pipeline as pp
+rng = np.random.default_rng(2)
+data = (np.repeat(rng.integers(0, 5, 2048, dtype=np.uint8), 4).tobytes()
+        + rng.integers(0, 256, 8192, dtype=np.uint8).tobytes() + b"tail")
+mesh = (torch.device("cpu"),)
+blob = pp.compress_l5_mesh(data, 4096, mesh)
+assert pp.decompress_l5_mesh(blob, mesh) == data
+assert ops.COUNTERS["sbrt_plain"] == 2, ops.COUNTERS
+assert ops.COUNTERS["l5_decode_device_blocks"] == 4, ops.COUNTERS
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+def test_l5_device_chain_imports_no_jax():
+    """The device level-5 chain (parallel.pipeline: BWT, RANK through the
+    SBRT wrapper, ZRLT, ANS0) round trip on the CPU leaves no jax* and no
+    kanzi_tpu module in sys.modules."""
+    r = subprocess.run([sys.executable, "-c", _L5_DEVICE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FOREIGN_MODULES []" in r.stdout, r.stdout
+
+
 def test_csrc_sources_are_bound():
     """Every CUDA source in csrc/ is built and bound by ops/_build.py, each
     bound launcher is an extern "C" function of its source, and no source
