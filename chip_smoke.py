@@ -16,11 +16,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    require bit-identical results; time both (median of CUDA-event
    times), the one PyTorch call that computes the same function where
    there is one (library_ms), and compute each kernel's bound from the
-   bytes and operations of these inputs. Kernels A-E at the main path's
-   shape (4096 chunks of 16 KiB). F (order-1 ANS) and G (FPAQ) are held
-   against their plain versions on the card, timed once, at shapes
-   those finish in seconds (F: 16 chunks of 64 KiB; G: 64 streams of 8
-   KiB with 2 KiB FPAQ chunks); against their plain versions run on the
+   bytes and operations of these inputs (D's and F's as one function
+   each, split between their two kernels). Kernels A-E at the main
+   path's shape (4096 chunks of 16 KiB), D's code-table prologue and its
+   pack timed apart. F (order-1 ANS: F1 the gather, F2 the chain, timed
+   apart) and G (FPAQ) are held against their plain versions on the
+   card, timed once, at shapes those finish in seconds (F: 16 chunks of
+   64 KiB; G: 64 streams of 8 KiB with 2 KiB FPAQ chunks); against
+   their plain versions run on the
    host's CPU, in worker processes of this script started after phase 3
    and read before phase 9, at the container's launch shape of F
    (one 4 MiB chunk) and at the main path's 16 streams and 4 MiB FPAQ
@@ -41,7 +44,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    4 MiB blocks); require a round trip,
    output byte-identical with the host path (the same container with
    kanzi_tpu_torch.ops disabled: the port's native C++ coders), and
-   every kernel of the path launched; then one run of each Huffman
+   every kernel of the path launched (F once for the 16 ANS1 blocks,
+   no compaction B for Huffman); then one run of each Huffman
    direction and of the ANS1 and FPAQ encodes under torch.profiler
    (device time by kernel and copy, the device's idle share) and under
    cProfile (host self time);
@@ -102,10 +106,29 @@ INT32_OPS_PER_S = 67e12 / 4
 # byte for FPAQ: 8 bit steps of ~24, 64-bit operations counted twice),
 # counted from the kernels' inner loops; for SBRT per step of the host
 # automaton (transform/sbrt.py): read the symbol and its rank, write the
-# output, qc (and, and, add, shift), set p, q and the symbol's new rank
+# output, qc (and, and, add, shift), set p, q and the symbol's new rank.
+# D and F are each one function computed by two kernels, whose bound is
+# split between them (split_bound); each operation of the function is
+# counted once, none of the design's own. D's prologue: the fragment
+# length sum (extract, look up, shift, add; the table build comes as
+# extra operations); D's pack: extract, look up, split length and code,
+# shift-or into 64 bits, count, and a word store every ~3 symbols. F1:
+# two byte loads, the pair index, the table load, split f and cum, the
+# small compare, clz, the bias select, the shift, the LUT load; F2:
+# cmplFreq, xmax, compare, select, umulhi, shift, multiply-add, add, the
+# slot's select and permute, its store
 OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
-       "huff_encode_scan": 14, "huff_decode": 8, "ans1_encode_scan": 20,
-       "fpaq_encode": 8 * 24, "sbrt": 10}
+       "huff_code_tables": 4, "huff_pack": 12, "huff_decode": 8,
+       "ans1_gather": 11, "ans1_chain": 11, "fpaq_encode": 8 * 24,
+       "sbrt": 10}
+# D's table build, per chunk: a sort of its 256 byte counts (256 x 8
+# compare-exchanges of 3 operations); per symbol slot its canonical
+# code (count its length, its rank among the symbols of that length, the
+# code, the pack); per tree node of Moffat-Katajainen (two picks of
+# compare, select, load and store)
+SORT_OPS = 256 * 8 * 3
+CODE_OPS = 8
+NODE_OPS = 20
 # and per rank its walk visits: test r > 0, read the symbol below and its
 # q, compare, move it up (two writes)
 SBRT_VISIT_OPS = 6
@@ -113,14 +136,18 @@ REPLACES = {
     "ans0_encode_scan": ("ans0.cu", "kanzi_tpu/ops/ans.py:120"),
     "ans0_compact": ("ans0.cu", "kanzi_tpu/ops/ans.py:210"),
     "ans0_decode": ("ans0.cu", "kanzi_tpu/ops/ans.py:568"),
-    "huff_encode_scan": ("huffman.cu", "kanzi_tpu/ops/ans.py:145"),
+    # D is two kernels: its prologue builds the code tables that kanzi_tpu
+    # builds in XLA (compute_code_tables, kanzi_tpu/ops/huffman.py:98) for
+    # Pallas kernel 2's gather, which the pack runs
+    "huff_code_tables": ("huffman.cu", "kanzi_tpu/ops/ans.py:145"),
+    "huff_pack": ("huffman.cu", "kanzi_tpu/ops/ans.py:145"),
     "huff_decode": ("huffman.cu", "kanzi_tpu/ops/huffman.py:317"),
-    "ans1_encode_scan": ("ans1.cu", "kanzi_tpu/ops/ans1.py:142, "
-                                    "kanzi_tpu/ops/ans1.py:221"),
+    "ans1_gather": ("ans1.cu", "kanzi_tpu/ops/ans1.py:142"),
+    "ans1_chain": ("ans1.cu", "kanzi_tpu/ops/ans1.py:221"),
     "fpaq_encode": ("fpaq.cu", "kanzi_tpu/ops/fpaq.py:286"),
     "sbrt": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
 }
-SMALL_ANS1 = (16, 64 << 10)         # F against its plain version
+SMALL_ANS1 = (16, 64 << 10)         # F1, F2 against their plain versions
 SMALL_FPAQ = (64, 8 << 10, 2048)    # G: streams, bytes, FPAQ chunk bytes
 HOST_FPAQ_BYTES = 256 << 10         # G's plain run on the CPU: each of the
                                     # 16 main-path streams' first bytes
@@ -236,6 +263,23 @@ def bound(name: str, moved: int, items: int, extra_ops: int = 0) -> dict:
     t_ops = 1000 * (OPS[name] * items + extra_ops) / INT32_OPS_PER_S
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def split_bound(parts: dict) -> dict:
+    """The bounds of the kernels that compute one function together:
+    parts {kernel: (bytes, operations)}, the function's bytes (its inputs
+    read once, its outputs written once; not the scratch between the
+    kernels) and operations, each in the share of the one kernel that
+    reads, writes or does it. The function's bound is the larger of its
+    bytes and operations times; each kernel gets its share of the one
+    that binds, so the kernels' bounds add up to the function's."""
+    t_bytes = {k: 1000 * b / HBM_BYTES_PER_S for k, (b, _) in parts.items()}
+    t_ops = {k: 1000 * o / INT32_OPS_PER_S for k, (_, o) in parts.items()}
+    by_bytes = sum(t_bytes.values()) >= sum(t_ops.values())
+    t = t_bytes if by_bytes else t_ops
+    return {k: dict(bound_ms=t[k],
+                    bound_by="bytes" if by_bytes else "operations")
+            for k in parts}
 
 
 def profile(label: str, fn) -> None:
@@ -359,22 +403,50 @@ def check_huffman_kernels(chunks, dhuff) -> tuple:
     tables_ms = median_ms(lambda: dhuff.compute_code_tables(hist), 3)
     res = {}
 
-    # D: code tables, then the encode scan
-    got = dhuff.huff_encode_scan(chunks, hist)
-    ref = dhuff.huff_encode_scan_plain(chunks, hist)
-    codes, sizes, _, m, ok = got[:5]
-    # the prologue's loops: 256 rank compares and up to 128 same-length
-    # compares per symbol slot (3 operations each), ~20 per tree node
-    c = chunks.shape[0]
-    prologue_ops = 3 * 384 * 256 * c + 20 * int(m.long().sum())
-    res["huff_encode_scan"] = dict(
+    # D's prologue: code tables and each fragment's bit count
+    got = dhuff.huff_code_tables(chunks, hist)
+    ref = dhuff.huff_code_tables_plain(chunks, hist)
+    codes, sizes, maxlen, m, ok, bits = got
+    res["huff_code_tables"] = dict(
         err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
-        ms=median_ms(lambda: dhuff.huff_encode_scan(chunks, hist), 5),
+        ms=median_ms(lambda: dhuff.huff_code_tables(chunks, hist), 5),
         plain_ms=median_ms(
-            lambda: dhuff.huff_encode_scan_plain(chunks, hist), 2),
-        library_ms=gather_ms(codes, chunks),
-        **bound("huff_encode_scan", nbytes(chunks, hist, *got),
-                chunks.numel(), prologue_ops))
+            lambda: dhuff.huff_code_tables_plain(chunks, hist), 2),
+        library_ms=None)
+
+    # D's pack: the pair stream (its used front), acc, nb, npairs, at the
+    # offsets that huff_encode_scan cumsums from the bit counts
+    off16 = dhuff.pair_offsets(ok, bits)
+    got = dhuff.huff_pack(chunks, codes, ok, off16)
+    ref = dhuff.huff_pack_plain(chunks, codes, ok, off16)
+    npairs = got[3].long().view(-1)
+    n16 = int(npairs.sum())
+    err = max(max_abs_err(g, r) for g, r in zip(got[1:], ref[1:]))
+    err = max(err, max_abs_err(got[0][:2 * n16], ref[0][:2 * n16]),
+              max_abs_err(off16.view(-1), npairs.cumsum(0) - npairs))
+    res["huff_pack"] = dict(
+        err=err,
+        ms=median_ms(lambda: dhuff.huff_pack(chunks, codes, ok, off16), 5),
+        plain_ms=median_ms(
+            lambda: dhuff.huff_pack_plain(chunks, codes, ok, off16), 2),
+        library_ms=gather_ms(codes, chunks))
+    # D's function: chunks and hist in; the tables, the used pairs,
+    # offsets, acc, nb and npairs out (bits is scratch between the two)
+    c = chunks.shape[0]
+    table_ops = ((SORT_OPS + 256 * CODE_OPS) * c
+                 + NODE_OPS * int(m.long().sum()))
+    for k, v in split_bound({
+            "huff_code_tables": (
+                nbytes(chunks, hist, codes, sizes, maxlen, m, ok),
+                OPS["huff_code_tables"] * chunks.numel() + table_ops),
+            "huff_pack": (nbytes(off16, *got[1:]) + 2 * n16,
+                          OPS["huff_pack"] * chunks.numel())}).items():
+        res[k].update(v)
+    whole_ms = median_ms(lambda: dhuff.huff_encode_scan(chunks, hist), 5)
+    log(f"kernel D (huff_encode_scan = huff_code_tables, pair_offsets' "
+        f"cumsum, huff_pack) at C={c}: {whole_ms} ms; prologue "
+        f"{res['huff_code_tables']['ms']} ms, pack {res['huff_pack']['ms']} "
+        f"ms; {2 * n16} pair bytes written")
 
     # E: decode of the same chunks' fragments
     enc = dhuff.encode_chunks_np(chunks.cpu().numpy(), chunks.device)
@@ -415,7 +487,8 @@ def plain_worker(path: Path) -> None:
     a = torch.load(path)
     t0 = time.perf_counter()
     if a["kind"] == "ans1_encode_scan":
-        out = dans1.ans1_encode_scan_plain(a["chunks"], a["table"], a["lut"])
+        out = dans1.ans1_chain_plain(dans1.ans1_gather_plain(
+            a["chunks"], a["table"], a["lut"]))
     elif a["kind"] == "sbrt":
         fwd = dsb.sbrt_plain(a["blocks"], a["lens"], dsb.MODE_RANK, False)
         out = (fwd, dsb.sbrt_plain(fwd, a["lens"], dsb.MODE_RANK, True))
@@ -459,6 +532,11 @@ def start_plain_workers(corpus, dans1, dfp, native, rank_in) -> dict:
     return workers
 
 
+# the kernels that each worker's plain version checks
+WORKER_KERNELS = {"ans1_encode_scan": ("ans1_gather", "ans1_chain"),
+                  "fpaq_encode": ("fpaq_encode",), "sbrt": ("sbrt",)}
+
+
 def finish_plain_workers(workers, full_got, kres) -> None:
     """Wait for the workers, hold the kernels' outputs on the same
     inputs (full_got) against theirs, fold the difference into kres'
@@ -475,7 +553,8 @@ def finish_plain_workers(workers, full_got, kres) -> None:
             if key in a).shape))
         log(f"kernel {k}: max_abs_err {err} against its plain version on "
             f"the host's CPU at [{shape}] (plain {res['seconds']:.3f} s)")
-        kres[k]["err"] = max(kres[k]["err"], err)
+        for name in WORKER_KERNELS[k]:
+            kres[name]["err"] = max(kres[name]["err"], err)
         if err != 0:
             fail(f"{k} differs from its plain version on the host's CPU")
 
@@ -486,12 +565,12 @@ def ans1_freqs(host_chunks, native):
 
 
 def check_ans1_kernel(corpus, dans1, native, dev, f_in, full_got) -> dict:
-    """F against its plain version at SMALL_ANS1, then timed at the main
-    path's shape: the corpus as 4 MiB order-1 chunks, 16 a call, whose
-    bitstream (headers from the native helpers, states and payload from
-    F and B) must equal native.ans1_enc_block's. Its outputs on f_in
-    (one 4 MiB chunk, the container's launch shape, timed too) go to
-    full_got for the plain worker's check."""
+    """F1 and F2 against their plain versions at SMALL_ANS1, then timed
+    apart at the main path's shape: the corpus as 4 MiB order-1 chunks,
+    16 a call, whose bitstream (headers from the native helpers, states
+    and payload from F1, F2 and B in one launch each) must equal
+    native.ans1_enc_block's. Their outputs on f_in (one 4 MiB chunk, timed
+    too) go to full_got for the plain worker's check."""
     from kanzi_tpu_torch.bitstream import BitWriter
     from kanzi_tpu_torch.core.context import Context
     from kanzi_tpu_torch.entropy.ans import ANSRangeEncoder
@@ -501,10 +580,14 @@ def check_ans1_kernel(corpus, dans1, native, dev, f_in, full_got) -> dict:
     small = torch.from_numpy(host.copy()).to(dev)
     table = dans1.encode_table(torch.from_numpy(ans1_freqs(host, native))
                                .to(dev))
-    got = dans1.ans1_encode_scan(small, table, lut)
-    ref, plain_ms = once_ms(
-        lambda: dans1.ans1_encode_scan_plain(small, table, lut))
-    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    consts = dans1.ans1_gather(small, table, lut)
+    ref_consts, plain_g_ms = once_ms(
+        lambda: dans1.ans1_gather_plain(small, table, lut))
+    err_g = max_abs_err(consts, ref_consts)
+    got = dans1.ans1_chain(ref_consts)
+    ref, plain_c_ms = once_ms(lambda: dans1.ans1_chain_plain(ref_consts))
+    err_c = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    del consts, ref_consts
     one = [f_in[k].to(dev) for k in ("chunks", "table", "lut")]
     full_got["ans1_encode_scan"] = [
         t.cpu() for t in dans1.ans1_encode_scan(*one)]
@@ -515,8 +598,11 @@ def check_ans1_kernel(corpus, dans1, native, dev, f_in, full_got) -> dict:
     chunks = torch.from_numpy(host.copy()).to(dev)
     table = dans1.encode_table(torch.from_numpy(ans1_freqs(host, native))
                                .to(dev))
+    ms_g = median_ms(lambda: dans1.ans1_gather(chunks, table, lut), 3)
+    consts = dans1.ans1_gather(chunks, table, lut)
+    ms_c = median_ms(lambda: dans1.ans1_chain(consts), 3)
+    states, vm = dans1.ans1_chain(consts)
     ms = median_ms(lambda: dans1.ans1_encode_scan(chunks, table, lut), 3)
-    states, vm = dans1.ans1_encode_scan(chunks, table, lut)
     idx = dans1.build_sym_idx(chunks).long()
     library_ms = median_ms(lambda: torch.gather(table, 1, idx), 3)
     del idx
@@ -531,15 +617,25 @@ def check_ans1_kernel(corpus, dans1, native, dev, f_in, full_got) -> dict:
         fail("ans1: the card's order-1 bitstream differs from "
              "native.ans1_enc_block's")
     q = dans1.CHUNK1 // 4
-    log(f"kernel ans1_encode_scan: {len(host)} chunks of 4 MiB, 4 lanes x "
-        f"{q} steps each: kernel_ms {ms}, {1e6 * ms / q:.2f} ns per "
-        f"dependent step; at one chunk (the container's launch) "
-        f"{ms_one}; plain_ms {plain_ms} at {n} chunks of {size >> 10} KiB "
-        f"(once); bitstream == native.ans1_enc_block")
-    return {"ans1_encode_scan": dict(
-        err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        **bound("ans1_encode_scan",
-                nbytes(chunks, table, lut, states, vm), chunks.numel()))}
+    log(f"kernel F (ans1_encode_scan = ans1_gather, ans1_chain): "
+        f"{len(host)} chunks of 4 MiB, 4 lanes x {q} steps each: {ms} ms; "
+        f"F1 ans1_gather {ms_g} ms, F2 ans1_chain {ms_c} ms, "
+        f"{1e6 * ms_c / q:.2f} ns per dependent step; at one chunk "
+        f"{ms_one} ms; plain_ms F1 {plain_g_ms}, F2 {plain_c_ms} at {n} "
+        f"chunks of {size >> 10} KiB (once); bitstream == "
+        f"native.ans1_enc_block")
+    # F's function: chunks, tables and LUT in, states and vm out (the
+    # constant words are scratch between F1 and F2)
+    b = split_bound({
+        "ans1_gather": (nbytes(chunks, table, lut),
+                        OPS["ans1_gather"] * chunks.numel()),
+        "ans1_chain": (nbytes(states, vm),
+                       OPS["ans1_chain"] * chunks.numel())})
+    return {
+        "ans1_gather": dict(err=err_g, ms=ms_g, plain_ms=plain_g_ms,
+                            library_ms=library_ms, **b["ans1_gather"]),
+        "ans1_chain": dict(err=err_c, ms=ms_c, plain_ms=plain_c_ms,
+                           library_ms=None, **b["ans1_chain"])}
 
 
 def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
@@ -855,8 +951,10 @@ def run(workers: dict) -> None:
     del rank_in
     torch.cuda.empty_cache()
     for k, r in kres.items():
-        shape = {"ans1_encode_scan": "16 chunks of 4 MiB; plain on the "
-                                     "card at 16 x 64 KiB",
+        shape = {"ans1_gather": "16 chunks of 4 MiB; plain on the card "
+                                "at 16 x 64 KiB",
+                 "ans1_chain": "16 chunks of 4 MiB; plain on the card at "
+                               "16 x 64 KiB",
                  "fpaq_encode": "16 streams of 4 MiB; plain on the card "
                                 "at 64 x 8 KiB",
                  "sbrt": "16 RANK inputs of 4 MiB + 33, forward; plain on "
@@ -890,8 +988,8 @@ def run(workers: dict) -> None:
     # the host's native coders, as in kanzi_tpu
     for entropy, path in (
             ("ANS0", ("ans0_encode_scan", "ans0_compact", "ans0_decode")),
-            ("HUFFMAN", ("huff_encode_scan", "ans0_compact", "huff_decode")),
-            ("ANS1", ("ans1_encode_scan", "ans0_compact")),
+            ("HUFFMAN", ("huff_code_tables", "huff_pack", "huff_decode")),
+            ("ANS1", ("ans1_gather", "ans1_chain", "ans0_compact")),
             ("FPAQ", ("fpaq_encode",))):
         ops.reset_counters()
         blob, t_enc = timed(kanzi_tpu_torch.compress_bytes, corpus, "NONE",
@@ -909,6 +1007,12 @@ def run(workers: dict) -> None:
                 fail(f"kernel {k} was not launched by the NONE/{entropy} "
                      "container")
             launches[k] = launches.get(k, 0) + counts[k]
+        if entropy == "HUFFMAN" and "ans0_compact" in counts:
+            fail("the NONE/HUFFMAN container launched the compaction B")
+        if entropy == "ANS1" and (counts["ans1_gather"] != 1
+                                  or counts["ans1_chain"] != 1):
+            fail("the 16 blocks of the NONE/ANS1 container took more than "
+                 "one launch of F")
         ops.disable()
         try:
             host, t_henc = timed(kanzi_tpu_torch.compress_bytes, corpus,
@@ -966,7 +1070,7 @@ def run(workers: dict) -> None:
     for level, flags, path in (
             (5, ["-l", "5"], ("ans0_encode_scan", "ans0_compact",
                               "ans0_decode")),
-            (3, [], ("huff_encode_scan", "ans0_compact", "huff_decode")),
+            (3, [], ("huff_code_tables", "huff_pack", "huff_decode")),
             (6, ["-l", "6", "-b", "256k"], ("fpaq_encode",))):
         mib = {}
         for where in ("card", "host"):
@@ -990,6 +1094,8 @@ def run(workers: dict) -> None:
                         fail(f"kernel {k} was not launched by the level-"
                              f"{level} CLI")
                     launches[k] += counts[k]
+                if level == 3 and "ans0_compact" in counts:
+                    fail("the level-3 CLI launched the compaction B")
                 log(f"level {level} CLI ({' '.join(flags) or 'no -l'}) on "
                     f"the card: launches {counts}")
             elif counts:

@@ -7,11 +7,12 @@
 // caller's CUDA stream, launches, and returns cudaGetLastError(). Outputs
 // are allocated by the caller.
 //
-// D. huff_encode_scan <- kanzi_tpu/ops/ans.py _gather_kernel1 (:145),
-//    called from kanzi_tpu/ops/huffman.py:175, and the fragment lax.scan
-//    of huffman_encode_chunks (:181-198); its prologue builds the code
-//    tables that the JAX package leaves to XLA (compute_code_tables,
-//    kanzi_tpu/ops/huffman.py:98-152).
+// D. huff_pack <- kanzi_tpu/ops/ans.py _gather_kernel1 (:145),
+//    called from kanzi_tpu/ops/huffman.py:175, the fragment lax.scan of
+//    huffman_encode_chunks (:181-198) and the compaction of its pairs;
+//    its prologue, huff_code_tables, builds the code tables that the JAX
+//    package leaves to XLA (compute_code_tables,
+//    kanzi_tpu/ops/huffman.py:98-152) and counts each fragment's bits.
 // E. huff_decode      <- kanzi_tpu/ops/huffman.py _huff_decode_kernel (:317).
 
 #include <cuda_runtime.h>
@@ -23,48 +24,46 @@ constexpr int kChunk = 16384;
 constexpr int kFrag = kChunk / 4;
 constexpr int kTable = 1 << 12;   // 12-bit prefix table
 
-// XLA's shifts: a shift by 32 or more gives 0. Only the codes of chunks
-// the host re-encodes (a code longer than 12 bits) reach such lengths,
-// but their accumulators are part of the result all the same.
-__device__ __forceinline__ uint32_t shl32(uint32_t x, uint32_t s) {
-  return s >= 32 ? 0u : x << s;
-}
-__device__ __forceinline__ uint32_t shr32(uint32_t x, uint32_t s) {
-  return s >= 32 ? 0u : x >> s;
-}
-
 // ---------------------------------------------------------------------
-// D, prologue. Code tables: one block of 256 threads per chunk, thread s
-// owning symbol s. The ranks of the (freq << 8 | sym) keys come from 256
-// compares per thread (the keys of present symbols are distinct), which
-// replaces the batched sort. Moffat-Katajainen (HuffmanEncoder.cpp:
-// 246-300) is sequential by nature, so one thread runs both phases on the
-// chunk's 256 ranks in shared memory: phase 1 is 2(m-1) steps, phase 2
-// touches each rank O(1) times. The canonical codes are the per-length
-// counting construction of compute_code_tables: a code longer than 12
-// bits is clamped to 13 there (such chunks are not ok and the host codes
-// them), and the result equals the plain version for every chunk.
+// D, prologue: the code tables and each fragment's bit count, in three
+// kernels, so that the sequential part runs apart from the parallel
+// ones, as F's chain does.
 //
-// Bound: the sequential phases of one thread per chunk (a few thousand
-// dependent shared-memory steps); every SM keeps 8 chunks in flight.
+// 1. Ranks: one block of 256 threads per chunk, thread s owning symbol s.
+//    The ranks of the (freq << 8 | sym) keys come from 256 compares per
+//    thread (the keys of present symbols are distinct), which replaces
+//    the batched sort. The keys by rank go to `sizes` (scratch here).
+// 2. Lengths: Moffat-Katajainen (HuffmanEncoder.cpp:246-300) is
+//    sequential by nature: phase 1 is 2(m-1) dependent steps, phase 2
+//    touches each rank O(1) times. One thread runs both phases for one
+//    chunk, the chunks of 32 threads packed in a warp, each on its own
+//    column of shared memory ([rank][thread]: no bank conflict). A first
+//    design ran them on thread 0 of the chunk's 256-thread block, so each
+//    block sat idle through them: the prologue took 0.465 ms at 4096
+//    chunks, more than the pack, on an H100 80GB HBM3 at 700 W (PERF.md).
+//    The lengths by rank go to `codes` (scratch here).
+// 3. Codes: one block per chunk again. The canonical codes are the
+//    per-length counting construction of compute_code_tables (a length
+//    over 12 bits is clamped to 13 there; such chunks are not ok and the
+//    host codes them), each symbol's rank among the same length in symbol
+//    order from __match_any_sync and per-warp counts. Last, a short pass
+//    over the chunk's 16 KiB (64 bytes a thread) sums the code lengths of
+//    each fragment: its bit count, from which the pack's offsets follow.
+//
+// Bound: the 256 rank compares a symbol (operations), and the lengths'
+// dependent chain of ~2m shared-memory steps a chunk, 4096 chunks in
+// parallel.
 // ---------------------------------------------------------------------
 
 constexpr int kMaxSym = 12;
 constexpr int32_t kAbsentFreq = 0x7FFFFF;   // (2^31 - 1) >> 8, as the sort's
+constexpr int kLenChunks = 32;              // lengths: chunks per block
 
 __global__ void __launch_bounds__(256)
-huff_code_tables_kernel(const int64_t* __restrict__ hist, int n_chunks,
-                        uint32_t* __restrict__ codes_out,
-                        int32_t* __restrict__ sizes_out,
-                        int32_t* __restrict__ maxlen_out,
-                        int32_t* __restrict__ m_out,
-                        uint8_t* __restrict__ ok_out) {
+huff_ranks_kernel(const int64_t* __restrict__ hist,
+                  int32_t* __restrict__ keys_out,
+                  int32_t* __restrict__ m_out) {
   __shared__ uint32_t s_key[256];
-  __shared__ int32_t s_data[256];   // by rank: freq, then tree, then length
-  __shared__ uint8_t s_sym[256];    // symbol by rank
-  __shared__ int32_t s_size[256];   // length by symbol
-  __shared__ int32_t s_first[kMaxSym + 2];
-  __shared__ int32_t s_maxlen;
   const int c = blockIdx.x;
   const int sym = threadIdx.x;
   const int64_t f = hist[(size_t)c * 256 + sym];
@@ -72,8 +71,6 @@ huff_code_tables_kernel(const int64_t* __restrict__ hist, int n_chunks,
   const uint32_t key = present ? ((uint32_t)f << 8) | (uint32_t)sym
                                : 0xFFFFFFFFu;
   s_key[sym] = key;
-  s_size[sym] = 0;
-  if (sym == 0) s_maxlen = 0;
   __syncthreads();
   int rank = 0, m = 0;
   for (int j = 0; j < 256; ++j) {
@@ -81,163 +78,278 @@ huff_code_tables_kernel(const int64_t* __restrict__ hist, int n_chunks,
     rank += kj < key;
     m += kj != 0xFFFFFFFFu;
   }
-  if (present) {
-    s_data[rank] = (int32_t)f;
-    s_sym[rank] = (uint8_t)sym;
-  }
-  if (sym >= m) s_data[sym] = kAbsentFreq;
-  __syncthreads();
+  int32_t* keys = keys_out + (size_t)c * 256;
+  if (present) keys[rank] = (int32_t)key;
+  if (sym >= m) keys[sym] = kAbsentFreq << 8;
+  if (sym == 0) m_out[c] = m;
+}
 
-  if (sym == 0) {
-    int32_t* d = s_data;
-    // phase 1: in-place tree build (entropy/huffman.py
-    // _compute_inplace_phase1)
-    int s = 0, r = 0;
-    for (int t = 0; t < m - 1; ++t) {
-      int32_t total = 0;
-      for (int k = 0; k < 2; ++k) {
-        const int32_t dr = d[min(r, 255)];
-        const int32_t ds = d[min(s, 255)];
-        const bool use_r = s >= m || (r < t && dr < ds);
-        total += use_r ? dr : ds;
-        if (use_r) {
-          d[min(r, 255)] = t;
-          ++r;
-        } else {
-          if (s > t) d[min(s, 255)] = 0;
-          ++s;
-        }
+__global__ void __launch_bounds__(kLenChunks)
+huff_lengths_kernel(const int32_t* __restrict__ keys,
+                    const int32_t* __restrict__ m_in, int n_chunks,
+                    int32_t* __restrict__ lens_out) {
+  __shared__ int32_t s_d[256][kLenChunks];
+  const int t = threadIdx.x;
+  const int c = blockIdx.x * kLenChunks + t;
+  if (c >= n_chunks) return;
+#define D(i) s_d[(i)][t]
+  for (int i = 0; i < 256; ++i) D(i) = keys[(size_t)c * 256 + i] >> 8;
+  const int m = m_in[c];
+  // phase 1: in-place tree build (entropy/huffman.py
+  // _compute_inplace_phase1)
+  int s = 0, r = 0;
+  for (int it = 0; it < m - 1; ++it) {
+    int32_t total = 0;
+    for (int k = 0; k < 2; ++k) {
+      const int32_t dr = D(min(r, 255));
+      const int32_t ds = D(min(s, 255));
+      const bool use_r = s >= m || (r < it && dr < ds);
+      total += use_r ? dr : ds;
+      if (use_r) {
+        D(min(r, 255)) = it;
+        ++r;
+      } else {
+        if (s > it) D(min(s, 255)) = 0;
+        ++s;
       }
-      d[t] = total;
     }
-    // phase 2: internal-node depths -> leaf lengths, as the batched
-    // plain version runs it (at most 64 levels; m == 1 gives length 1)
-    int nn = m, top = m - 2, depth = 1, nal = 2;
-    for (int it = 0; it < 64 && nn > 0; ++it) {
-      int k = top > 0 ? top : 0;
-      while (k > 0 && d[k - 1] >= top) --k;
-      const int internal = top - k;
-      const int newn = nn - (nal - internal);
-      for (int i = max(newn, 0); i < min(nn, 256); ++i) d[i] = depth;
-      nn = newn;
-      top = k;
-      ++depth;
-      nal = 2 * internal;
-    }
+    D(it) = total;
   }
+  // phase 2: internal-node depths -> leaf lengths, as the batched plain
+  // version runs it (at most 64 levels; m == 1 gives length 1)
+  int nn = m, top = m - 2, depth = 1, nal = 2;
+  for (int it = 0; it < 64 && nn > 0; ++it) {
+    int k = top > 0 ? top : 0;
+    while (k > 0 && D(k - 1) >= top) --k;
+    const int internal = top - k;
+    const int newn = nn - (nal - internal);
+    for (int i = max(newn, 0); i < min(nn, 256); ++i) D(i) = depth;
+    nn = newn;
+    top = k;
+    ++depth;
+    nal = 2 * internal;
+  }
+  for (int i = 0; i < 256; ++i) lens_out[(size_t)c * 256 + i] = D(i);
+#undef D
+}
+
+// codes: lengths by rank in, packed len<<12 | code by symbol out; sizes:
+// keys by rank in, lengths by symbol out
+__global__ void __launch_bounds__(256)
+huff_codes_kernel(const uint8_t* __restrict__ chunks,
+                  const int64_t* __restrict__ hist,
+                  const int32_t* __restrict__ m_in,
+                  uint32_t* __restrict__ codes,
+                  int32_t* __restrict__ sizes,
+                  int32_t* __restrict__ maxlen_out,
+                  uint8_t* __restrict__ ok_out,
+                  int32_t* __restrict__ bits_out) {
+  __shared__ int32_t s_size[256];              // length by symbol
+  __shared__ uint32_t s_code[256];
+  __shared__ int32_t s_count[16];
+  __shared__ int32_t s_first[kMaxSym + 2];
+  __shared__ int32_t s_wcnt[8][16];            // per warp, per length
+  __shared__ int32_t s_maxlen;
+  __shared__ int32_t s_bits[4];
+  const int c = blockIdx.x;
+  const int sym = threadIdx.x;
+  const int warp = sym >> 5;
+  const int lane = sym & 31;
+  const size_t o = (size_t)c * 256 + sym;
+  const int m = m_in[c];
+  const int32_t key_r = sizes[o];              // rank `sym`
+  const int32_t len_r = (int32_t)codes[o];
+  s_size[sym] = 0;
+  if (sym < 16) s_count[sym] = 0;
+  if (sym < 8 * 16) s_wcnt[sym >> 4][sym & 15] = 0;
+  if (sym < 4) s_bits[sym] = 0;
+  if (sym == 0) s_maxlen = 0;
   __syncthreads();
   if (sym < m) {
-    s_size[s_sym[sym]] = s_data[sym];
-    atomicMax(&s_maxlen, s_data[sym]);
+    s_size[key_r & 0xFF] = len_r;
+    atomicMax(&s_maxlen, len_r);
   }
   __syncthreads();
 
-  // canonical codes: first code of each length, then the rank among the
-  // present symbols of the same length, in symbol order
+  const bool present = hist[o] > 0;
   const int32_t size = s_size[sym];
   const int ln = present ? min(size, kMaxSym + 1) : kMaxSym + 1;
+  if (present) atomicAdd(&s_count[ln], 1);
+  // the rank among the present symbols of the same length, in symbol order
+  const int ln_key = present && ln <= kMaxSym ? ln : 15;
+  const unsigned same_w = __match_any_sync(0xFFFFFFFFu, ln_key);
+  if (lane == __ffs(same_w) - 1) s_wcnt[warp][ln_key] = __popc(same_w);
+  __syncthreads();
   if (sym == 0) {
-    int32_t counts[kMaxSym + 2] = {0};
-    for (int j = 0; j < 256; ++j)
-      counts[s_key[j] != 0xFFFFFFFFu ? min(s_size[j], kMaxSym + 1)
-                                     : kMaxSym + 1]++;
     int32_t first = 0;
     s_first[0] = 0;
     for (int l = 0; l <= kMaxSym; ++l) {
-      first = (first + counts[l]) << 1;
+      first = (first + s_count[l]) << 1;
       s_first[l + 1] = first;
     }
   }
   __syncthreads();
   int32_t same = 0;
-  if (present && ln <= kMaxSym) {
-    for (int j = 0; j < sym; ++j)
-      same += s_key[j] != 0xFFFFFFFFu && min(s_size[j], kMaxSym + 1) == ln;
+  if (ln_key <= kMaxSym) {
+    same = __popc(same_w & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) same += s_wcnt[w][ln_key];
   }
-  const size_t o = (size_t)c * 256 + sym;
-  codes_out[o] = present ? ((uint32_t)ln << 12) | (uint32_t)(s_first[ln] + same)
-                         : 0u;
-  sizes_out[o] = size;
+  const uint32_t code = present
+      ? ((uint32_t)ln << 12) | (uint32_t)(s_first[ln] + same) : 0u;
+  codes[o] = code;
+  sizes[o] = size;
   if (sym == 0) {
     maxlen_out[c] = s_maxlen;
-    m_out[c] = m;
     ok_out[c] = m > 1 && s_maxlen <= kMaxSym;
   }
+
+  // the bit count of each fragment: thread i sums the lengths (code >> 12,
+  // as the pack reads them) of bytes 64i .. 64i+63, fragment i / 64
+  s_code[sym] = code;
+  __syncthreads();
+  const uint4* src = reinterpret_cast<const uint4*>(chunks + (size_t)c * kChunk)
+                     + sym * 4;
+  int32_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint4 w = src[k];
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      bits += (int32_t)(s_code[(ws[b >> 2] >> (8 * (b & 3))) & 0xFF] >> 12);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) bits += __shfl_xor_sync(0xFFFFFFFFu, bits, d);
+  if (lane == 0) atomicAdd(&s_bits[sym >> 6], bits);
+  __syncthreads();
+  if (sym < 4) bits_out[(size_t)c * 4 + sym] = s_bits[sym];
 }
 
 // ---------------------------------------------------------------------
-// D. Encode scan. One thread per (chunk, fragment); the chunk's 256-entry
+// D. Encode: pack the fragments' codes into the pair stream. One block of
+// 4 warps per chunk, one warp per fragment; the chunk's 256-entry
 // len<<12 | code table sits in shared memory, so the gather that the TPU
 // ran as a separate 128-lane split-table pass is one shared load per
-// symbol. Each thread walks its fragment's 4096 symbols forward (one u32
-// load per 4 symbols) with a u32 bit accumulator holding fewer than 16
-// bits between steps: len <= 12, so at most one 16-bit pair comes out
-// per step. It writes the slot flag<<16 | lo<<8 | hi of every step
-// (16 bytes per 4 steps), the vm of huffman_encode_chunks, zero for the
-// rows of not-ok chunks, which kernel B then packs.
+// symbol.
 //
-// Bound: device-memory bandwidth for the 64 KiB of slots written per
-// chunk (4x the input), and the 4096-step dependent chain per thread.
-// 16 chunks (64 threads, 16 KiB of shared memory) per block keep a
-// 4096-chunk batch resident at once.
+// Lane i takes symbols 128i .. 128i+127 (eight 16-byte loads, kept in
+// registers) and sums their lengths; an exclusive warp scan
+// (__shfl_up_sync) gives its first bit. It then writes its codes into the
+// fragment's big-endian bit image in shared memory (at most 13 bits a
+// symbol: 6.5 KiB) through a 64-bit buffer, a 32-bit word at a time: a
+// plain store for the words it owns alone, atomicOr for the first and
+// last, which it may share with its neighbours. For an ok chunk the warp
+// then stores the fragment's whole 16-bit pairs in payload order (hi, lo)
+// at byte 2 * off16 of flat, 32 consecutive pairs a store. Every row gets
+// nb = bits & 15 and acc = the last nb bits of the image, the values the
+// plain version's per-step accumulator ends with (it holds exactly the
+// pending bits: a code is shorter than 2^len, and len <= 13); npairs is
+// bits >> 4 for an ok chunk and 0 otherwise, and only ok chunks write
+// pairs. The first
+// design ran one thread per fragment and wrote a 4-byte slot for every
+// symbol (4x the input, uncoalesced) for kernel B to pack.
+//
+// Bound: the bytes (16 KiB read and ~13 KiB of pairs written a chunk on
+// this corpus), and the lanes' 128-symbol walks, which run in parallel.
+// 27 KiB of shared memory a block: 8 blocks (32 warps) an SM.
 // ---------------------------------------------------------------------
 
-constexpr int kEncChunks = 16;   // chunks per block, 4 threads each
+constexpr int kPackWarps = 4;                        // a block: one chunk
+constexpr int kLaneSyms = kFrag / 32;                // 128
+constexpr int kImgWords = kFrag * (kMaxSym + 1) / 32 + 2;
 
-__global__ void __launch_bounds__(kEncChunks * 4)
-huff_encode_scan_kernel(const uint8_t* __restrict__ chunks,
-                        const uint32_t* __restrict__ codes,
-                        const uint8_t* __restrict__ ok, int n_chunks,
-                        int32_t* __restrict__ vm,
-                        uint32_t* __restrict__ acc_out,
-                        int32_t* __restrict__ nb_out,
-                        int32_t* __restrict__ npairs_out) {
-  __shared__ uint32_t s_code[kEncChunks][256];
-  const int c0 = blockIdx.x * kEncChunks;
-  for (int i = threadIdx.x; i < kEncChunks * 256; i += blockDim.x) {
-    const int c = c0 + (i >> 8);
-    if (c < n_chunks)
-      s_code[i >> 8][i & 255] = codes[(size_t)c * 256 + (i & 255)];
-  }
+__global__ void __launch_bounds__(kPackWarps * 32)
+huff_pack_kernel(const uint8_t* __restrict__ chunks,
+                 const uint32_t* __restrict__ codes,
+                 const uint8_t* __restrict__ ok,
+                 const int64_t* __restrict__ off16,
+                 uint16_t* __restrict__ flat,
+                 uint32_t* __restrict__ acc_out,
+                 int32_t* __restrict__ nb_out,
+                 int32_t* __restrict__ npairs_out) {
+  __shared__ uint32_t s_code[256];
+  __shared__ uint32_t s_img[kPackWarps][kImgWords];
+  const int c = blockIdx.x;
+  const int f = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    s_code[i] = codes[(size_t)c * 256 + i];
+  uint32_t* img = s_img[f];
+  for (int i = lane; i < kImgWords; i += 32) img[i] = 0u;
   __syncthreads();
 
-  const int g = threadIdx.x >> 2;
-  const int f = threadIdx.x & 3;
-  const int c = c0 + g;
-  if (c >= n_chunks) return;
-  const bool live = ok[c] != 0;
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(
-      chunks + (size_t)c * kChunk + f * kFrag);
-  int4* dst = reinterpret_cast<int4*>(vm + (size_t)c * kChunk + f * kFrag);
-  uint32_t acc = 0;
-  int32_t nb = 0;
-  int32_t np = 0;
-  for (int i = 0; i < kFrag / 4; ++i) {
-    const uint32_t w = src[i];
-    int32_t slot[4];
+  const uint4* src = reinterpret_cast<const uint4*>(
+      chunks + (size_t)c * kChunk + f * kFrag + lane * kLaneSyms);
+  uint32_t w[kLaneSyms / 4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t x = s_code[g][(w >> (8 * k)) & 0xFF];
-      const uint32_t ln = x >> 12;
-      acc = shl32(acc, ln) | (x & 0xFFF);
-      nb += (int32_t)ln;
-      const bool flag = nb >= 16;
-      const uint32_t sh = flag ? (uint32_t)(nb - 16) : 0u;
-      const uint32_t out16 = shr32(acc, sh) & 0xFFFF;
-      if (flag) {
-        acc &= sh >= 32 ? 0xFFFFFFFFu : (1u << sh) - 1u;
-        nb -= 16;
-      }
-      np += flag ? 1 : 0;
-      slot[k] = live ? (int32_t)(((uint32_t)flag << 16) |
-                                 ((out16 & 0xFF) << 8) | (out16 >> 8))
-                     : 0;
-    }
-    dst[i] = make_int4(slot[0], slot[1], slot[2], slot[3]);
+  for (int k = 0; k < kLaneSyms / 16; ++k) {
+    const uint4 v = src[k];
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
   }
-  acc_out[(size_t)c * 4 + f] = acc;
-  nb_out[(size_t)c * 4 + f] = nb;
-  npairs_out[(size_t)c * 4 + f] = live ? np : 0;
+  int my = 0;
+#pragma unroll
+  for (int b = 0; b < kLaneSyms; ++b)
+    my += (int)(s_code[(w[b >> 2] >> (8 * (b & 3))) & 0xFF] >> 12);
+  int incl = my;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  const int b0 = incl - my;
+
+  // this lane's bits [b0, b0 + my) into the image, MSB first
+  uint64_t buf = 0;
+  int nbuf = b0 & 31;           // leading bits of the first word: not ours
+  int wi = b0 >> 5;
+  bool shared_first = (b0 & 31) != 0;
+#pragma unroll
+  for (int b = 0; b < kLaneSyms; ++b) {   // unrolled: w stays in registers
+    const uint32_t x = s_code[(w[b >> 2] >> (8 * (b & 3))) & 0xFF];
+    const int ln = (int)(x >> 12);
+    buf = (buf << ln) | (x & 0xFFFu);
+    nbuf += ln;
+    if (nbuf >= 32) {
+      nbuf -= 32;
+      const uint32_t word = (uint32_t)(buf >> nbuf);
+      buf &= (1ull << nbuf) - 1ull;
+      if (shared_first) atomicOr(&img[wi], word);
+      else img[wi] = word;
+      shared_first = false;
+      ++wi;
+    }
+  }
+  if (nbuf > 0) atomicOr(&img[wi], (uint32_t)(buf << (32 - nbuf)));
+  __syncwarp();
+
+  const size_t r = (size_t)c * 4 + f;
+  const int nb = total & 15;
+  const bool live = ok[c] != 0;
+  if (live) {
+    uint16_t* dst = flat + off16[r];
+    const int np = total >> 4;
+    for (int p = lane; p < np; p += 32) {
+      const uint32_t word = img[p >> 1];
+      const uint32_t v = (p & 1) ? word & 0xFFFFu : word >> 16;
+      dst[p] = (uint16_t)((v >> 8) | ((v & 0xFFu) << 8));   // bytes hi, lo
+    }
+  }
+  if (lane == 0) {
+    uint32_t acc = 0;
+    if (nb) {
+      const int start = total - nb;
+      const uint64_t win = ((uint64_t)img[start >> 5] << 32) |
+                           img[(start >> 5) + 1];
+      acc = (uint32_t)(win >> (64 - (start & 31) - nb)) & ((1u << nb) - 1u);
+    }
+    acc_out[r] = acc;
+    nb_out[r] = nb;
+    npairs_out[r] = live ? total >> 4 : 0;
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -314,21 +426,39 @@ const char* kanzi_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// D: the code tables of every chunk from its histogram, then the scan.
-int huff_encode_scan(const void* chunks, const void* hist, int n_chunks,
+// D, prologue: the code tables of every chunk from its histogram, and
+// each fragment's bit count (three kernels; `sizes` and `codes` carry
+// the keys and lengths by rank between them).
+int huff_code_tables(const void* chunks, const void* hist, int n_chunks,
                      void* codes, void* sizes, void* maxlen, void* m,
-                     void* ok, void* vm, void* acc, void* nb, void* npairs,
-                     int device, void* stream) {
+                     void* ok, void* bits, int device, void* stream) {
   cudaSetDevice(device);
   if (n_chunks > 0) {
-    huff_code_tables_kernel<<<n_chunks, 256, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)hist, n_chunks, (uint32_t*)codes, (int32_t*)sizes,
-        (int32_t*)maxlen, (int32_t*)m, (uint8_t*)ok);
-    huff_encode_scan_kernel<<<(n_chunks + kEncChunks - 1) / kEncChunks,
-                              kEncChunks * 4, 0, (cudaStream_t)stream>>>(
+    const cudaStream_t st = (cudaStream_t)stream;
+    huff_ranks_kernel<<<n_chunks, 256, 0, st>>>(
+        (const int64_t*)hist, (int32_t*)sizes, (int32_t*)m);
+    huff_lengths_kernel<<<(n_chunks + kLenChunks - 1) / kLenChunks,
+                          kLenChunks, 0, st>>>(
+        (const int32_t*)sizes, (const int32_t*)m, n_chunks, (int32_t*)codes);
+    huff_codes_kernel<<<n_chunks, 256, 0, st>>>(
+        (const uint8_t*)chunks, (const int64_t*)hist, (const int32_t*)m,
+        (uint32_t*)codes, (int32_t*)sizes, (int32_t*)maxlen, (uint8_t*)ok,
+        (int32_t*)bits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// D: the pairs of every ok chunk's fragments into flat at 2 * off16, and
+// each fragment's acc, nb and npairs.
+int huff_pack(const void* chunks, const void* codes, const void* ok,
+              const void* off16, int n_chunks, void* flat, void* acc,
+              void* nb, void* npairs, int device, void* stream) {
+  cudaSetDevice(device);
+  if (n_chunks > 0) {
+    huff_pack_kernel<<<n_chunks, kPackWarps * 32, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)chunks, (const uint32_t*)codes, (const uint8_t*)ok,
-        n_chunks, (int32_t*)vm, (uint32_t*)acc, (int32_t*)nb,
-        (int32_t*)npairs);
+        (const int64_t*)off16, (uint16_t*)flat, (uint32_t*)acc,
+        (int32_t*)nb, (int32_t*)npairs);
   }
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,10 @@ Pallas kernel uses with blocks/chunks as grid cells.
 In this package the full 16 KiB order-0 chunks run on the CUDA kernels
 of kanzi_tpu_torch.ops.ans, on the device the container put in the
 context (coding_device), and, where that device is a CUDA card, the full
-4 MiB order-1 chunks on the encode kernel of kanzi_tpu_torch.ops.ans1
-(-e ANS1, and ROLZ's order-1 literal sub-streams of 4 MiB or more).
+4 MiB order-1 chunks on the encode kernels of kanzi_tpu_torch.ops.ans1:
+those of every -e ANS1 block of a writer batch in one launch
+(io.compressed_stream.prepare_ans1_batch), ROLZ's order-1 literal
+sub-streams of 4 MiB or more in one launch each.
 Order-1 decode runs on the host's native coder, as in the JAX package.
 PyTorch's CUDA launches are thread-safe, so worker threads (the reader's
 -j prefetch) use the device too, where the JAX package keeps its device
@@ -57,6 +59,14 @@ def coding_device(ctx) -> torch.device:
     return torch.device(dev) if dev is not None else ops.device()
 
 
+def ans1_on_device(dev: torch.device) -> bool:
+    """True where the full order-1 chunks go to the order-1 encode kernels
+    on ``dev``: a CUDA device. On the CPU their plain version is a
+    Python loop of a million steps a chunk, so the native host coder
+    codes them."""
+    return dev.type == "cuda"
+
+
 def _sym_encode_tables(freqs: np.ndarray, lr: int):
     """Per-symbol encode constants (ANSEncSymbol::reset).
 
@@ -89,10 +99,15 @@ def _sym_encode_tables(freqs: np.ndarray, lr: int):
 
 
 class ANSRangeEncoder(EntropyEncoder):
+    # the chunk size (before the order's shift) where the caller gives none
+    default_chunk_size = DEFAULT_CHUNK_SIZE
+
     def __init__(self, obs: BitWriter, ctx=None, order: int = 0,
-                 chunk_size: int = DEFAULT_CHUNK_SIZE,
+                 chunk_size: int | None = None,
                  log_range: int = DEFAULT_LOG_RANGE):
         super().__init__(obs, ctx)
+        if chunk_size is None:
+            chunk_size = self.default_chunk_size
         if order not in (0, 1):
             raise ValueError("ANS Codec: order must be 0 or 1")
         if not MIN_CHUNK_SIZE <= chunk_size <= MAX_CHUNK_SIZE:
@@ -102,6 +117,12 @@ class ANSRangeEncoder(EntropyEncoder):
         self.order = order
         self.chunk_size = min(chunk_size << (8 * order), MAX_CHUNK_SIZE)
         self.log_range = log_range if order == 0 else max(log_range - 1, 8)
+
+    @classmethod
+    def full_chunk(cls, order: int) -> int:
+        """The chunk the coder cuts at ``order`` where the caller gives no
+        chunk size (order 1: 4 MiB)."""
+        return min(cls.default_chunk_size << (8 * order), MAX_CHUNK_SIZE)
 
     # --- header ---
     def _encode_header(self, alphabet, freqs, lr):
@@ -147,13 +168,13 @@ class ANSRangeEncoder(EntropyEncoder):
             start = self._encode_device(block, count)
             if start >= count:
                 return count
-        elif (self.order == 1 and lr == 11
-                and self.chunk_size == dans1.CHUNK1
-                and count >= dans1.CHUNK1 and _device_ans_enabled()
-                and native.transforms_available()
-                and coding_device(self.ctx).type == "cuda"):
-            # on the CPU the kernel's plain version is a Python loop of
-            # a million steps a chunk: the native host coder does it
+        elif (self.order == 1 and lr == 11 and count >= self.chunk_size
+                and _device_ans_enabled() and native.transforms_available()
+                and (self._prepared1(count) is not None
+                     or (self.chunk_size == dans1.CHUNK1
+                         and ans1_on_device(coding_device(self.ctx))))):
+            # the container's batch (prepare_ans1_batch), or this block's
+            # own launch
             start = self._encode_device1(block, count)
             if start >= count:
                 return count
@@ -253,35 +274,41 @@ class ANSRangeEncoder(EntropyEncoder):
                         flat[offs[c]:offs[c] + plen[c]].tobytes())
         return full * dans.CHUNK
 
+    def _prepared1(self, count: int):
+        """The container's prepared order-1 batch for this block
+        (prepare_ans1_batch) where it covers the block's full chunks at
+        this coder's chunk size, else None."""
+        prep = getattr(self, "prepared_device", None)
+        if (prep is not None and prep[0] == self.chunk_size
+                and len(prep[4]) == count // self.chunk_size):
+            return prep
+        return None
+
     def _encode_device1(self, block: np.ndarray, count: int) -> int:
-        """Encode every full order-1 chunk (self.chunk_size bytes) with
-        the CUDA kernel (kanzi_tpu_torch.ops.ans1), 16 chunks a call;
-        the frequencies and headers come from the native host helpers,
-        as in kanzi_tpu. Returns where the host tail starts.
-        Bit-identical with the host path by construction."""
+        """Encode every full order-1 chunk (self.chunk_size bytes): take
+        the container's prepared batch, or run all of the block's full
+        chunks through one launch of the CUDA kernels
+        (kanzi_tpu_torch.ops.ans1); the frequencies and headers come from
+        the native host helpers, as in kanzi_tpu. Returns where the host
+        tail starts. Bit-identical with the host path by construction."""
         lr = self.log_range
         size = self.chunk_size
         full = count // size
-        dev = coding_device(self.ctx)
-        chunks = block[:full * size].reshape(full, size)
-        for b0 in range(0, full, 16):
-            sub = chunks[b0:b0 + 16]
-            freqs = np.stack([native.ans1_norm(native.ans1_hist(ch))
-                              for ch in sub])
-            states, flat, plen = dans1.ans1_encode_batch(
-                dans._host_tensor(sub, np.uint8).to(dev), freqs)
-            states = states.cpu().numpy().view(np.uint32)
-            flat = flat.cpu().numpy()
-            plen = plen.cpu().numpy()
-            offs = np.cumsum(plen) - plen
-            for ci in range(len(sub)):
-                self.obs.write_bits(lr - 8, 3)
-                for k in range(256):
-                    data, nb = native.ans_enc_header(freqs[ci, k], lr)
-                    self.obs._append_bit_run(data, nb)
-                self._emit_chunk(states[ci],
-                                 flat[offs[ci]:offs[ci] + plen[ci]].tobytes(),
-                                 b"")
+        prep = self._prepared1(count)
+        if prep is None:
+            prep = (size, *ans1_encode_chunks_np(
+                block[:full * size].reshape(full, size),
+                coding_device(self.ctx)))
+        _, freqs, states, flat, plen = prep
+        offs = np.cumsum(plen) - plen
+        for ci in range(full):
+            self.obs.write_bits(lr - 8, 3)
+            for k in range(256):
+                data, nb = native.ans_enc_header(freqs[ci, k], lr)
+                self.obs._append_bit_run(data, nb)
+            self._emit_chunk(states[ci],
+                             flat[offs[ci]:offs[ci] + plen[ci]].tobytes(),
+                             b"")
         return full * size
 
     def _order1_histogram(self, chunk):
@@ -379,6 +406,21 @@ class ANSRangeEncoder(EntropyEncoder):
         self._emit_chunk(st, renorm, chunk[end4:end].tobytes())
 
 
+def ans1_encode_chunks_np(chunks: np.ndarray, device):
+    """Full order-1 chunks [C, size] uint8 through one launch of the
+    order-1 encode (kanzi_tpu_torch.ops.ans1) on ``device``, their
+    frequencies from the native host helpers. Returns (freqs
+    [C, 256, 256], states [C, 4] uint32, flat uint8 payload, plen [C]
+    int64 payload bytes) as numpy; chunk c's payload is flat[off[c] :
+    off[c] + plen[c]] with off the exclusive cumsum of plen."""
+    freqs = np.stack([native.ans1_norm(native.ans1_hist(ch))
+                      for ch in chunks])
+    states, flat, plen = dans1.ans1_encode_batch(
+        dans._host_tensor(chunks, np.uint8).to(device), freqs)
+    return (freqs, states.cpu().numpy().view(np.uint32), flat.cpu().numpy(),
+            plen.cpu().numpy())
+
+
 def ans0_flush_sink(entries, ctx) -> None:
     """ONE device decode for every (out_buffer, queued-chunk-records)
     pair collected -- within a block (_decode_device) or across many
@@ -406,9 +448,13 @@ def ans0_flush_sink(entries, ctx) -> None:
 
 
 class ANSRangeDecoder(EntropyDecoder):
+    default_chunk_size = DEFAULT_CHUNK_SIZE     # as ANSRangeEncoder's
+
     def __init__(self, ibs: BitReader, ctx=None, order: int = 0,
-                 chunk_size: int = DEFAULT_CHUNK_SIZE):
+                 chunk_size: int | None = None):
         super().__init__(ibs, ctx)
+        if chunk_size is None:
+            chunk_size = self.default_chunk_size
         if order not in (0, 1):
             raise ValueError("ANS Codec: order must be 0 or 1")
         if not MIN_CHUNK_SIZE <= chunk_size <= MAX_CHUNK_SIZE:

@@ -16,9 +16,10 @@ CompressedInputStream.cpp) for a host-orchestrated TPU pipeline:
 Block encoding is embarrassingly parallel (the reference fans out
 EncodingTasks over a thread pool); here the full 16 KiB entropy chunks of
 every queued block go to the CUDA kernels in one call per coder
-(prepare_ans0_batch, prepare_huffman_batch; the FPAQ blocks too,
-prepare_fpaq_batch, where enough of them make a batch), with this module
-doing the ordered host-side gather.
+(prepare_ans0_batch, prepare_huffman_batch, the full 4 MiB order-1 chunks
+in prepare_ans1_batch; the FPAQ blocks too, prepare_fpaq_batch, where
+enough of them make a batch), with this module doing the ordered
+host-side gather.
 
 The coding device comes from the ``device`` argument of the writer and
 the reader (any ``torch.device`` spelling; default: the CUDA device) and
@@ -40,13 +41,16 @@ from kanzi_tpu_torch.core.errors import Error, KanziError
 from kanzi_tpu_torch.core.events import Event, EventType, ListenerBus
 from kanzi_tpu_torch.core.hashes import xxhash32, xxhash64
 import kanzi_tpu_torch.ops as ops
+from kanzi_tpu_torch.entropy import ans as eans
 from kanzi_tpu_torch.entropy import factory as efactory
-from kanzi_tpu_torch.entropy.ans import ans0_flush_sink, coding_device
+from kanzi_tpu_torch.entropy.ans import (ans0_flush_sink,
+                                         ans1_encode_chunks_np, coding_device)
 from kanzi_tpu_torch.ops import ans as dans
 from kanzi_tpu_torch.ops import fpaq as dfp
 from kanzi_tpu_torch.ops import huffman as dhuff
 from kanzi_tpu_torch.transform import factory as tfactory
 from kanzi_tpu_torch.transform.sequence import SKIP_MASK
+from kanzi_tpu_torch.utils import native
 
 def _alloc_bytes_buffer(n: int):
     """(result_bytes, writable uint8 view) — an uninitialized bytes
@@ -284,6 +288,7 @@ def encode_block(block: np.ndarray, block_id: int, ctx: Context,
 ANS0_TYPE = 5
 HUFFMAN_TYPE = 1
 FPAQ_TYPE = 2
+ANS1_TYPE = 8
 FPAQ_CHUNK = 4 * 1024 * 1024
 
 
@@ -346,6 +351,39 @@ def prepare_fpaq_batch(states: list, ctx: Context) -> None:
                 if k + 1 < nchunks:
                     bound_lows.append(int(wl[i, w_end - 1]))
             st["prepared_entropy"] = (chunk_bufs, bound_lows, int(low56[i]))
+
+
+def prepare_ans1_batch(states: list, ctx: Context) -> None:
+    """Cross-block device batching for the order-1 ANS (-e ANS1) entropy
+    stage: the full order-1 chunks of every ANS1 block of the batch in
+    ONE launch of the order-1 encode (ops/ans1.py), their frequencies
+    from the native host helpers; each block gets its chunk size,
+    frequencies, states and payload slice for
+    ANSRangeEncoder._encode_device1. The chunk size is that of the coder
+    class the entropy factory makes (4 MiB); the gate is the coder's own
+    (entropy.ans.ans1_on_device)."""
+    size = eans.ANSRangeEncoder.full_chunk(1)
+    elig = [st for st in states
+            if st["e_type"] == ANS1_TYPE
+            and not (st["mode"] & COPY_BLOCK_MASK)
+            and st["post_len"] >= size]
+    if not elig or not ops.ENABLED or not native.transforms_available():
+        return
+    dev = coding_device(ctx)
+    if not eans.ans1_on_device(dev):
+        return
+    counts = [st["post_len"] // size for st in elig]
+    chunks = np.concatenate([st["out"][:n * size].reshape(n, size)
+                             for st, n in zip(elig, counts)])
+    freqs, sts, flat, plen = ans1_encode_chunks_np(chunks, dev)
+    offs = np.cumsum(plen) - plen
+    pos = 0
+    for st, n in zip(elig, counts):
+        sl = slice(pos, pos + n)
+        fend = offs[pos + n - 1] + plen[pos + n - 1]
+        st["prepared_entropy"] = (size, freqs[sl], sts[sl],
+                                  flat[offs[pos]:fend], plen[sl])
+        pos += n
 
 
 def prepare_huffman_batch(states: list, ctx: Context) -> None:
@@ -685,6 +723,7 @@ class CompressedWriter:
                 for block, bid, slot in work]
         prepare_ans0_batch(states, self.ctx)
         prepare_huffman_batch(states, self.ctx)
+        prepare_ans1_batch(states, self.ctx)
         prepare_fpaq_batch(states, self.ctx)
         self.commit_states(states)
 

@@ -44,16 +44,20 @@ SIGNATURES = {
         "ans0_decode": [_P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _P],
     },
     "huffman.cu": {
-        # chunks, hist, n_chunks, codes, sizes, maxlen, m, ok, vm, acc, nb,
-        # npairs, device, stream
-        "huff_encode_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _P],
+        # chunks, hist, n_chunks, codes, sizes, maxlen, m, ok, bits, device,
+        # stream
+        "huff_code_tables": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+        # chunks, codes, ok, off16, n_chunks, flat, acc, nb, npairs, device,
+        # stream
+        "huff_pack": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
         # tbl, pay, n_pay, bounds, n_chunks, out, device, stream
         "huff_decode": [_P, _P, _L, _P, _I, _P, _I, _P],
     },
     "ans1.cu": {
-        # chunks, table, lut, n_chunks, q, states, vm, device, stream
-        "ans1_encode_scan": [_P, _P, _P, _I, _I, _P, _P, _I, _P],
+        # chunks, table, lut, n_chunks, q, consts, device, stream
+        "ans1_gather": [_P, _P, _P, _I, _I, _P, _I, _P],
+        # consts, n_chunks, q, states, vm, device, stream
+        "ans1_chain": [_P, _I, _I, _P, _P, _I, _P],
     },
     "fpaq.cu": {
         # streams, lens, n_streams, lp, chunk_win, cap, words, win_cnt,

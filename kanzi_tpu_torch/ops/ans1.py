@@ -10,12 +10,15 @@ lane is (prev = 0, the quarter's first byte).
 Plain PyTorch does what the JAX package left to XLA and the host: the
 packed per-chunk encode table (``f | cum << 12`` per pair, the value the
 TPU split into bf16 byte planes for its one-hot MXU gather), the pair
-indexes and the per-row flag counts. One hand-written CUDA kernel
-(csrc/ans1.cu) does the rest, behind a wrapper with a plain PyTorch
-version beside it:
+indexes and the per-row flag counts. Two hand-written CUDA kernels
+(csrc/ans1.cu) do the rest, each behind a wrapper with a plain PyTorch
+version beside it, and both behind ``ans1_encode_scan``:
 
-- ``ans1_encode_scan``: the table gather and the 4-lane backward scan
-  in one kernel (Pallas ``_ans1_gather_kernel`` + ``_ans1_scan_kernel``).
+- ``ans1_gather`` (F1): the table gather and the invFreq lookup, every
+  step's encode constants packed into one 8-byte word (Pallas
+  ``_ans1_gather_kernel``);
+- ``ans1_chain`` (F2): the 4-lane backward scan over those words, the
+  lanes of 8 chunks a warp (Pallas ``_ans1_scan_kernel``).
 
 The renorm slots then go through kanzi_tpu_torch.ops.ans.compact_rows
 (kernel B) in rows of 16384, as for ANS0. Decode stays on the host's
@@ -77,44 +80,53 @@ def build_sym_idx(chunks: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# F. encode scan
+# F. encode scan: F1 (gather) and F2 (chain)
 # ---------------------------------------------------------------------------
 
-def ans1_encode_scan_plain(chunks, table, lut):
-    """Plain version of the ans1_encode_scan kernel: the table gather
-    in one torch.gather, then a Python loop over the q steps on [C, 4]
-    tensors."""
+def ans1_gather_plain(chunks, table, lut):
+    """Plain version of the ans1_gather kernel (F1): the table gather in
+    one torch.gather, then each step's encode constants packed into one
+    word, inv | ((shift - 1) | bias << 5 | cmplFreq << 18) << 32.
+    Returns [C, q, 4] int64, step-major, lanes last."""
     c, n = chunks.shape
-    q = n // 4
-    val = table.long().gather(1, build_sym_idx(chunks).long()).view(c, q, 4)
+    val = table.long().gather(1, build_sym_idx(chunks).long()).view(
+        c, n // 4, 4)
     f, cum = val & 0xFFF, val >> 12
     small = f < 2
     sp = torch.where(small, 1, _bit_length(f.clamp(min=2) - 1))
     bias = torch.where(small, cum + SCALE1 - 1, cum)
-    cmpl = SCALE1 - f
-    iv = (lut.long() & _U32)[f]
-    xmax = f << (31 - LOG_RANGE1)
-    st = torch.full((c, 4), ANS_TOP, dtype=torch.int64, device=chunks.device)
-    slots = torch.empty((c, q, 4), dtype=torch.int64, device=chunks.device)
+    hi = (sp - 1) | (bias << 5) | ((SCALE1 - f) << 18)
+    return (lut.long() & _U32)[f] | (hi << 32)
+
+
+def ans1_chain_plain(consts):
+    """Plain version of the ans1_chain kernel (F2): a Python loop over
+    the q steps on [C, 4] tensors. consts [C, q, 4] int64 (ans1_gather).
+    Returns (states [C, 4] int32 u32 bits, vm [C, 4q] int32)."""
+    c, q, _ = consts.shape
+    iv = consts & _U32
+    hi = consts >> 32
+    sh, bias, cmpl = hi & 31, (hi >> 5) & 0x1FFF, hi >> 18
+    xmax = (SCALE1 - cmpl) << (31 - LOG_RANGE1)
+    st = torch.full((c, 4), ANS_TOP, dtype=torch.int64, device=consts.device)
+    slots = torch.empty((c, q, 4), dtype=torch.int64, device=consts.device)
     for t in range(q):
         flag = st >= xmax[:, t]
         slots[:, t] = ((flag.long() << 16) | ((st & 0xFF) << 8)
                        | ((st >> 8) & 0xFF))
         st = torch.where(flag, st >> 16, st)
-        st = st + bias[:, t] + (((st * iv[:, t]) >> 32) >> (sp[:, t] - 1)
+        st = st + bias[:, t] + (((st * iv[:, t]) >> 32) >> sh[:, t]
                                 ) * cmpl[:, t]
     # emission order: reversed steps x reversed lanes
-    vm = slots.flip(1, 2).reshape(c, n)
+    vm = slots.flip(1, 2).reshape(c, 4 * q)
     return _u32_bits(st), vm.to(torch.int32)
 
 
-def ans1_encode_scan(chunks, table, lut):
-    """chunks [C, 4q] uint8 (4q a multiple of 16384, 16-byte aligned);
-    table [C, 65536] int32 (encode_table); lut [2049] int32 (INV_LUT).
-
-    Returns (states [C, 4] int32 final lane states as u32 bits, vm
-    [C, 4q] int32 renorm slots flag<<16 | lo<<8 | hi in emission order,
-    the layout of kernel A's vm)."""
+def ans1_gather(chunks, table, lut):
+    """F1. chunks [C, 4q] uint8 (4q a multiple of 16384); table
+    [C, 65536] int32 (encode_table); lut [2049] int32 (INV_LUT).
+    Returns consts [C, q, 4] int64, the packed encode constants of each
+    step and lane (ans1_gather_plain)."""
     c, n = chunks.shape
     dev = chunks.device
     if n == 0 or n % ROW:
@@ -123,19 +135,44 @@ def ans1_encode_scan(chunks, table, lut):
     _check("chunks", chunks, torch.uint8, (c, n), dev)
     _check("table", table, torch.int32, (c, TABLE1), dev)
     _check("lut", lut, torch.int32, (SCALE1 + 1,), dev)
-    if _on_cpu("ans1_encode_scan", dev):
-        return ans1_encode_scan_plain(chunks, table, lut)
+    if _on_cpu("ans1_gather", dev):
+        return ans1_gather_plain(chunks, table, lut)
     if c and int((table & 0xFFF).max()) > SCALE1:
         raise ValueError(f"table: a frequency above {SCALE1} (the LUT's "
                          "last entry)")
-    if chunks.data_ptr() % 16:
-        raise ValueError("chunks: the kernel reads 16-byte words; the "
-                         "tensor must start on a 16-byte boundary")
+    consts = torch.empty((c, n // 4, 4), dtype=torch.int64, device=dev)
+    _launch("ans1_gather", dev, chunks, table, lut, c, n // 4, consts)
+    return consts
+
+
+def ans1_chain(consts):
+    """F2. consts [C, q, 4] int64 (ans1_gather; q a multiple of 4096).
+    Returns (states [C, 4] int32 final lane states as u32 bits, vm
+    [C, 4q] int32 renorm slots flag<<16 | lo<<8 | hi in emission order,
+    the layout of kernel A's vm)."""
+    c, q, _ = consts.shape
+    dev = consts.device
+    if q == 0 or q % (ROW // 4):
+        raise ValueError(f"consts: {q} steps is not a positive multiple "
+                         f"of {ROW // 4}")
+    _check("consts", consts, torch.int64, (c, q, 4), dev)
+    if _on_cpu("ans1_chain", dev):
+        return ans1_chain_plain(consts)
     states = torch.empty((c, 4), dtype=torch.int32, device=dev)
-    vm = torch.empty((c, n), dtype=torch.int32, device=dev)
-    _launch("ans1_encode_scan", dev, chunks, table, lut, c, n // 4, states,
-            vm)
+    vm = torch.empty((c, 4 * q), dtype=torch.int32, device=dev)
+    _launch("ans1_chain", dev, consts, c, q, states, vm)
     return states, vm
+
+
+def ans1_encode_scan(chunks, table, lut):
+    """chunks [C, 4q] uint8 (4q a multiple of 16384); table [C, 65536]
+    int32 (encode_table); lut [2049] int32 (INV_LUT).
+
+    Returns (states [C, 4] int32 final lane states as u32 bits, vm
+    [C, 4q] int32 renorm slots flag<<16 | lo<<8 | hi in emission order,
+    the layout of kernel A's vm): F1, then F2, their 8-byte-a-symbol
+    scratch freed on return."""
+    return ans1_chain(ans1_gather(chunks, table, lut))
 
 
 # ---------------------------------------------------------------------------

@@ -10,21 +10,22 @@ Plain PyTorch does what the JAX package left to XLA: the header bit
 packing and the decode tables, and, as the plain half of kernel D, the
 code tables (the reference's in-place Moffat-Katajainen construction,
 HuffmanEncoder.cpp:246-300, batched over chunks, and the canonical
-codes). Two hand-written CUDA kernels (csrc/huffman.cu) do the rest,
+codes). Three hand-written CUDA kernels (csrc/huffman.cu) do the rest,
 each behind a wrapper with a plain PyTorch version beside it:
 
-- ``huff_encode_scan``: the code tables of each chunk from its histogram
-  (a prologue kernel, one block per chunk), then the 4-fragment
-  bit-packing scan with the chunk's code table in shared memory (Pallas
-  ``_gather_kernel1`` + the ``lax.scan``).
+- ``huff_encode_scan`` (D): ``huff_code_tables``, the code tables of
+  each chunk from its histogram and each fragment's bit count (a prologue
+  kernel, one block per chunk), then ``huff_pack``, every fragment's
+  codes straight into the flat pair stream at offsets cumsummed from
+  those counts, one warp a fragment (Pallas ``_gather_kernel1`` + the
+  ``lax.scan`` + the compaction).
 - ``huff_decode``: the 4-fragment decode through a direct 12-bit prefix
   table in shared memory (Pallas ``_huff_decode_kernel``).
 
-The emitted 16-bit pairs are packed into one flat payload by
-kanzi_tpu_torch.ops.ans.compact_rows (kernel B). Chunks with an alphabet
-of at most one symbol, or a code longer than MAX_SYMBOL_SIZE bits, are
-not encoded here (ok is false): the host codes them, with the exact
-bit-debt length limiting for the latter.
+The Huffman encode launches no compaction (kernel B). Chunks with an
+alphabet of at most one symbol, or a code longer than MAX_SYMBOL_SIZE
+bits, are not encoded here (ok is false): the host codes them, with the
+exact bit-debt length limiting for the latter.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import numpy as np
 import torch
 
 from kanzi_tpu_torch.ops.ans import (_U32, _bit_length, _check, _host_tensor,
-                                     _launch, _on_cpu, _u32_bits, compact_rows,
-                                     histogram, pack_slots)
+                                     _launch, _on_cpu, _u32_bits, histogram,
+                                     pack_slots)
 
 CHUNK = 16384
 FRAG = CHUNK // 4
@@ -178,32 +179,46 @@ def _scan_plain(chunks, codes, ok):
             npairs.to(torch.int32))
 
 
-def huff_encode_scan_plain(chunks, hist):
-    """Plain version of the huff_encode_scan kernel: compute_code_tables,
-    then the scan (_scan_plain)."""
+def huff_code_tables_plain(chunks, hist):
+    """Plain version of D's prologue kernel: compute_code_tables, ok, and
+    each fragment's bit count (the sum of its symbols' code lengths,
+    code >> 12 as the scan reads them)."""
     codes, sizes, maxlen, m = compute_code_tables(hist)
     ok = (m > 1) & (maxlen <= MAX_SYMBOL_SIZE)
-    codes = codes.to(torch.int32)
-    return (codes, sizes.to(torch.int32), maxlen.to(torch.int32),
-            m.to(torch.int32), ok, *_scan_plain(chunks, codes, ok))
+    ln = (codes >> 12).gather(1, chunks.long())
+    bits = ln.view(-1, 4, FRAG).sum(2)
+    return (codes.to(torch.int32), sizes.to(torch.int32),
+            maxlen.to(torch.int32), m.to(torch.int32), ok,
+            bits.to(torch.int32))
 
 
-def huff_encode_scan(chunks, hist):
-    """chunks [C, CHUNK] uint8; hist [C, 256] int64 their byte counts
-    (histogram).
+def huff_pack_plain(chunks, codes, ok, off16):
+    """Plain version of D's pack kernel: the scan (_scan_plain), then
+    each fragment's flagged slots' pairs, in order, into a zeroed flat
+    buffer at its offset off16."""
+    c, dev = chunks.shape[0], chunks.device
+    vm, acc, nb, npairs = _scan_plain(chunks, codes, ok)
+    flags = ((vm >> 16) & 1).view(c, 4, FRAG).long()
+    dest = (off16[:, :, None] + flags.cumsum(2) - flags).view(c, CHUNK)
+    sel = flags.view(c, CHUNK).bool()
+    slots = torch.zeros(2 * FRAG_MAX_BYTES * c, dtype=torch.int64,
+                        device=dev)
+    slots[dest[sel]] = (vm & 0xFFFF)[sel].long()        # lo << 8 | hi
+    flat = torch.stack([slots & 0xFF, slots >> 8], 1).view(-1)
+    return flat.to(torch.uint8), acc, nb, npairs
 
-    Returns (codes [C, 256] int32 packed len<<12 | code, sizes [C, 256],
-    maxlen [C] and m [C] int32: compute_code_tables's; ok [C] bool, the
-    chunks coded here (m > 1, maxlen <= 12); vm [C, CHUNK] int32 slots
-    flag<<16 | lo<<8 | hi of the 16-bit pair emitted at each step,
-    fragment-major, zero for not-ok rows; acc [C, 4] int32 (u32 bits) and
-    nb [C, 4] int32, the bits left in each fragment's accumulator; npairs
-    [C, 4] int32 pairs per fragment, zero for not-ok rows)."""
+
+def huff_code_tables(chunks, hist):
+    """D's prologue. chunks [C, CHUNK] uint8; hist [C, 256] int64 their
+    byte counts (histogram). Returns (codes [C, 256] int32 packed
+    len<<12 | code, sizes [C, 256], maxlen [C] and m [C] int32:
+    compute_code_tables's; ok [C] bool, the chunks coded here (m > 1,
+    maxlen <= 12); bits [C, 4] int32 each fragment's bit count)."""
     c, dev = chunks.shape[0], chunks.device
     _check("chunks", chunks, torch.uint8, (c, CHUNK), dev)
     _check("hist", hist, torch.int64, (c, 256), dev)
-    if _on_cpu("huff_encode_scan", dev):
-        return huff_encode_scan_plain(chunks, hist)
+    if _on_cpu("huff_code_tables", dev):
+        return huff_code_tables_plain(chunks, hist)
     if chunks.data_ptr() % 16:
         raise ValueError("chunks: must be 16-byte aligned")
     codes, sizes = (torch.empty((c, 256), dtype=torch.int32, device=dev)
@@ -211,12 +226,60 @@ def huff_encode_scan(chunks, hist):
     maxlen, m = (torch.empty(c, dtype=torch.int32, device=dev)
                  for _ in range(2))
     ok = torch.empty(c, dtype=torch.bool, device=dev)
-    vm = torch.empty((c, CHUNK), dtype=torch.int32, device=dev)
+    bits = torch.empty((c, 4), dtype=torch.int32, device=dev)
+    _launch("huff_code_tables", dev, chunks, hist, c, codes, sizes, maxlen,
+            m, ok, bits)
+    return codes, sizes, maxlen, m, ok, bits
+
+
+def pair_offsets(ok, bits):
+    """ok [C] bool and bits [C, 4] int32 (huff_code_tables) -> off16
+    [C, 4] int64, where each fragment's pairs start in the flat stream:
+    the exclusive cumsum, fragment-minor, of its pair count (bits >> 4 on
+    ok rows, else 0)."""
+    n = torch.where(ok[:, None], bits >> 4, 0).long().view(-1)
+    return (n.cumsum(0) - n).view(bits.shape)
+
+
+def huff_pack(chunks, codes, ok, off16):
+    """D's pack. chunks [C, CHUNK] uint8; codes [C, 256] int32 and ok [C]
+    bool (huff_code_tables); off16 [C, 4] int64 (pair_offsets; the pack
+    writes where it says, so it must be that cumsum). Returns (flat
+    [C * 4 * FRAG_MAX_BYTES] uint8, the pair stream: fragment f of ok
+    chunk c has its npairs[c, f] 16-bit pairs, bytes (hi, lo), at byte
+    2 * off16[c, f]; the bytes past the last pair are unspecified, the
+    buffer being allocated at its upper bound, 12 bits a symbol, so that
+    no host sync sizes it; acc [C, 4] int32 (u32 bits) and nb [C, 4]
+    int32, the nb < 16 bits left in each fragment's accumulator, for
+    every row; npairs [C, 4] int32 pairs per fragment, bits >> 4 for ok
+    rows, else 0)."""
+    c, dev = chunks.shape[0], chunks.device
+    _check("chunks", chunks, torch.uint8, (c, CHUNK), dev)
+    _check("codes", codes, torch.int32, (c, 256), dev)
+    _check("ok", ok, torch.bool, (c,), dev)
+    _check("off16", off16, torch.int64, (c, 4), dev)
+    if _on_cpu("huff_pack", dev):
+        return huff_pack_plain(chunks, codes, ok, off16)
+    if chunks.data_ptr() % 16:
+        raise ValueError("chunks: must be 16-byte aligned")
+    flat = torch.empty(4 * FRAG_MAX_BYTES * c, dtype=torch.uint8, device=dev)
     acc, nb, npairs = (torch.empty((c, 4), dtype=torch.int32, device=dev)
                        for _ in range(3))
-    _launch("huff_encode_scan", dev, chunks, hist, c, codes, sizes, maxlen,
-            m, ok, vm, acc, nb, npairs)
-    return codes, sizes, maxlen, m, ok, vm, acc, nb, npairs
+    _launch("huff_pack", dev, chunks, codes, ok, off16, c, flat, acc, nb,
+            npairs)
+    return flat, acc, nb, npairs
+
+
+def huff_encode_scan(chunks, hist):
+    """Kernel D: chunks [C, CHUNK] uint8; hist [C, 256] int64 their byte
+    counts (histogram). Returns (codes, sizes, maxlen, m, ok) of
+    huff_code_tables, off16 of pair_offsets, then (flat, acc, nb,
+    npairs) of huff_pack, as (codes, sizes, maxlen, m, ok, flat, off16,
+    acc, nb, npairs): the prologue, a cumsum, the pack."""
+    codes, sizes, maxlen, m, ok, bits = huff_code_tables(chunks, hist)
+    off16 = pair_offsets(ok, bits)
+    flat, acc, nb, npairs = huff_pack(chunks, codes, ok, off16)
+    return codes, sizes, maxlen, m, ok, flat, off16, acc, nb, npairs
 
 
 # ---------------------------------------------------------------------------
@@ -282,11 +345,9 @@ def encode_chunks(chunks: torch.Tensor):
     kanzi_tpu.ops.huffman.encode_chunks_np as tensors: (hdr [C, 512],
     hdr_bits [C], ok [C], m [C], flat [2 * sum(npairs)] uint8 pair
     stream, npairs [C, 4], acc [C, 4], nb [C, 4], frag_bits [C, 4])."""
-    _, sizes, _, m, ok, vm, acc, nb, npairs = huff_encode_scan(
+    _, sizes, _, m, ok, flat, _, acc, nb, npairs = huff_encode_scan(
         chunks, histogram(chunks))
-    plen16 = npairs.long().sum(1)
-    off16 = plen16.cumsum(0) - plen16
-    flat = compact_rows(vm, off16, int(plen16.sum()))
+    flat = flat[:2 * int(npairs.long().sum())]
     frag_bits = 16 * npairs + nb * ok[:, None]
     hdr, hdr_bits = pack_huff_headers(sizes, m.long(), ok, frag_bits)
     return hdr, hdr_bits, ok, m, flat, npairs, acc, nb, frag_bits

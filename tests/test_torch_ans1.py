@@ -28,6 +28,12 @@ from kanzi_tpu.core.context import Context as RefContext
 from kanzi_tpu.entropy.ans import ANSRangeEncoder as RefANSRangeEncoder
 from kanzi_tpu.entropy.ans import _sym_encode_tables
 
+import kanzi_tpu.entropy.ans as ref_ans
+import kanzi_tpu.ops as kops
+from kanzi_tpu.io.compressed_stream import compress_bytes as ref_compress
+
+import kanzi_tpu_torch.entropy.ans as tans
+import kanzi_tpu_torch.io.compressed_stream as tcs
 import kanzi_tpu_torch.ops as tops
 from kanzi_tpu_torch.bitstream import BitReader, BitWriter
 from kanzi_tpu_torch.core.context import Context
@@ -113,7 +119,7 @@ def test_encode_batch_matches_host_lanes():
     freqs = _freqs(chunks)
     tops.reset_counters()
     states, flat, plen = t1.ans1_encode_batch(torch.from_numpy(chunks), freqs)
-    assert tops.COUNTERS == {"ans1_encode_scan_plain": 1,
+    assert tops.COUNTERS == {"ans1_gather_plain": 1, "ans1_chain_plain": 1,
                              "ans0_compact_plain": 1}
     states = states.numpy().view(np.uint32)
     flat, plen = flat.numpy(), plen.numpy()
@@ -142,7 +148,7 @@ def test_encode_device1_matches_kanzi_tpu():
     tops.reset_counters()
     start = enc._encode_device1(block, len(block))
     assert start == 2 * (1024 << 8)
-    assert tops.COUNTERS == {"ans1_encode_scan_plain": 1,
+    assert tops.COUNTERS == {"ans1_gather_plain": 1, "ans1_chain_plain": 1,
                              "ans0_compact_plain": 1}
     enc.encode(block[start:])
     assert w.getvalue() == ref.getvalue()
@@ -150,6 +156,57 @@ def test_encode_device1_matches_kanzi_tpu():
                           chunk_size=1024)
     out = np.concatenate([dec.decode(start), dec.decode(len(block) - start)])
     assert np.array_equal(out, block)
+
+
+def _order1_chunk_size(cls, chunk_size):
+    """cls (one of kanzi_tpu's ANSRange coder classes) cutting order-1
+    chunks of chunk_size << 8 bytes unless told otherwise."""
+    class Coder(cls):
+        def __init__(self, *args, order=0, **kw):
+            if order == 1:
+                kw.setdefault("chunk_size", chunk_size)
+            super().__init__(*args, order=order, **kw)
+    return Coder
+
+
+def test_writer_batch_takes_one_launch(monkeypatch):
+    """A writer batch of three -e ANS1 blocks (two full order-1 chunks and
+    a tail each) runs its six full chunks through ONE call of the order-1
+    encode (plain F1, F2 and B here, the coder's CUDA gate opened by
+    monkeypatching it): the container is byte-identical with kanzi_tpu's
+    and with the port's host path, and decodes back. Both packages cut
+    256 KiB order-1 chunks (chunk_size=1024), so that the plain F runs
+    in seconds."""
+    for name in ("ANSRangeEncoder", "ANSRangeDecoder"):
+        monkeypatch.setattr(getattr(tans, name), "default_chunk_size", 1024)
+        monkeypatch.setattr(ref_ans, name, _order1_chunk_size(
+            getattr(ref_ans, name), 1024))
+    rng = np.random.default_rng(7)
+    block = 2 * (256 * KIB) + 40 * KIB
+    data = np.concatenate([_text(rng, block),
+                           rng.integers(0, 256, block, dtype=np.uint8),
+                           rng.choice(np.arange(6, dtype=np.uint8), block)]
+                          ).tobytes()
+    kops.disable()
+    try:
+        ref = ref_compress(data, "NONE", "ANS1", block_size=block)
+    finally:
+        kops.enable()
+    tops.disable()
+    try:
+        host = tcs.compress_bytes(data, "NONE", "ANS1", block_size=block,
+                                  device="cpu")
+    finally:
+        tops.enable()
+    monkeypatch.setattr(tans, "ans1_on_device", lambda dev: True)
+    tops.reset_counters()
+    got = tcs.compress_bytes(data, "NONE", "ANS1", block_size=block,
+                             device="cpu")
+    assert tops.COUNTERS == {"ans1_gather_plain": 1, "ans1_chain_plain": 1,
+                             "ans0_compact_plain": 1}
+    assert got == ref
+    assert got == host
+    assert tcs.decompress_bytes(got, device="cpu") == data
 
 
 def test_device_gate_is_the_full_chunk():
@@ -192,16 +249,30 @@ def cuda_device():
 @pytest.mark.needs_cuda
 @pytest.mark.parametrize("n_chunks", [8, 16])
 def test_kernel_matches_plain_on_cuda(cuda_device, n_chunks):
-    """Kernel F against its plain version on the card, at n_chunks
-    chunks of 16 KiB: the three classes above and skewed random bytes."""
+    """Kernels F1 and F2, each and together, against their plain versions
+    on the card, at n_chunks chunks of 16 KiB: the three classes above,
+    a chunk whose context 'a' has a frequency-1 successor (the small
+    branch, f < 2), a chunk of one repeated byte, and skewed random
+    bytes."""
     rng = np.random.default_rng(n_chunks)
-    host = rng.geometric(0.05, (n_chunks, 4 * 4096)).astype(np.uint8)
-    host[:3] = _chunks(4 * 4096)
+    n = 4 * 4096
+    host = rng.geometric(0.05, (n_chunks, n)).astype(np.uint8)
+    host[:3] = _chunks(n)
+    host[3] = np.tile(np.frombuffer(b"ab", np.uint8), n // 2)
+    host[3, 5001] = ord("c")
+    host[4] = 0x41
     chunks = torch.from_numpy(host).to(cuda_device)
-    table = t1.encode_table(torch.from_numpy(_freqs(host)).to(cuda_device))
+    freqs = _freqs(host)
+    assert freqs[3, ord("a"), ord("c")] == 1
+    table = t1.encode_table(torch.from_numpy(freqs).to(cuda_device))
     lut = t1.INV_LUT.to(cuda_device)
-    got = t1.ans1_encode_scan(chunks, table, lut)
-    ref = t1.ans1_encode_scan_plain(chunks, table, lut)
+    consts = t1.ans1_gather(chunks, table, lut)
+    ref_consts = t1.ans1_gather_plain(chunks, table, lut)
+    got = t1.ans1_chain(ref_consts)
+    ref = t1.ans1_chain_plain(ref_consts)
+    both = t1.ans1_encode_scan(chunks, table, lut)
     torch.cuda.synchronize()
-    for g, r in zip(got, ref):
+    assert torch.equal(consts, ref_consts)
+    for g, b, r in zip(got, both, ref):
         assert torch.equal(g, r)
+        assert torch.equal(b, r)

@@ -140,8 +140,36 @@ def test_encode_matches_jax(jh):
         r = np.asarray(r)
         assert g.shape == r.shape and g.dtype == r.dtype, name
         assert np.array_equal(g, r), name
-    assert tops.COUNTERS == {"huff_encode_scan_plain": 1,
-                             "ans0_compact_plain": 1}
+    # the pack writes the pair stream itself: no compaction (kernel B)
+    assert tops.COUNTERS == {"huff_code_tables_plain": 1,
+                             "huff_pack_plain": 1}
+
+
+def _pairs(scan):
+    """The used front of huff_encode_scan's flat pair stream."""
+    return scan[5][:2 * int(scan[9].long().sum())]
+
+
+def test_encode_scan_pairs_match_jax(jh):
+    """Kernel D's plain version on the corpus (a not-ok chunk whose codes
+    run past 12 bits, a one-symbol chunk): its pair stream, offsets, acc,
+    nb and npairs == kanzi_tpu.ops.huffman.encode_chunks_np's flat,
+    npairs cumsum, acc, nb and npairs; the rest of flat is zero."""
+    chunks = _chunk_corpus()
+    ref = jh.encode_chunks_np(chunks)
+    _, _, ok, m, r_flat, r_np, r_acc, r_nb, _ = (np.asarray(x) for x in ref)
+    assert not ok.all() and (m == 1).any()
+    scan = th.huff_encode_scan(torch.from_numpy(chunks),
+                               th.histogram(torch.from_numpy(chunks)))
+    flat, off16, acc, nb, npairs = scan[5:]
+    assert flat.shape == (len(chunks) * 4 * th.FRAG_MAX_BYTES,)
+    assert np.array_equal(_pairs(scan).numpy(), r_flat)
+    assert not flat[len(r_flat):].any()
+    np16 = r_np.reshape(-1).astype(np.int64)
+    assert np.array_equal(off16.numpy().reshape(-1), np.cumsum(np16) - np16)
+    assert np.array_equal(acc.numpy().view(np.uint32), r_acc)
+    assert np.array_equal(nb.numpy(), r_nb)
+    assert np.array_equal(npairs.numpy(), r_np)
 
 
 def test_decode_matches_jax_and_roundtrips(jh):
@@ -224,7 +252,8 @@ def test_coder_matches_kanzi_tpu(name, _ref_host_path):
     assert w.getvalue() == ref.getvalue()
     dec = HuffmanDecoder(BitReader(w.getvalue()), ctx).decode(len(block))
     assert np.array_equal(dec, block)
-    assert tops.COUNTERS["huff_encode_scan_plain"] == 1
+    assert tops.COUNTERS["huff_code_tables_plain"] == 1
+    assert tops.COUNTERS["huff_pack_plain"] == 1
     assert tops.COUNTERS["huff_decode_plain"] == 1
 
 
@@ -310,9 +339,9 @@ def cuda_device():
 @pytest.mark.needs_cuda
 @pytest.mark.parametrize("n_chunks", [8, 64, 256])
 def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
-    """Kernels D (code tables and scan) and E against their plain
-    versions on the card: the corpus above plus random and skewed
-    chunks."""
+    """Kernels D (the code-table prologue and the pack: pair stream,
+    offsets, acc, nb, npairs) and E against their plain versions on the
+    card: the corpus above plus random and skewed chunks."""
     rng = np.random.default_rng(n_chunks)
     host = rng.integers(0, 256, (n_chunks, CHUNK)).astype(np.uint8)
     host[n_chunks // 2:] = rng.geometric(0.05, (n_chunks - n_chunks // 2,
@@ -321,9 +350,15 @@ def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
     chunks = torch.from_numpy(host).to(cuda_device)
     hist = th.histogram(chunks)
     got = th.huff_encode_scan(chunks, hist)
-    ref = th.huff_encode_scan_plain(chunks, hist)
-    for g, r in zip(got, ref):
+    tables = th.huff_code_tables_plain(chunks, hist)
+    codes, _, _, _, ok, bits = tables
+    off16 = th.pair_offsets(ok, bits)
+    flat, acc, nb, npairs = th.huff_pack_plain(chunks, codes, ok, off16)
+    ref = (*tables[:5], flat, off16, acc, nb, npairs)
+    # flat: the pair stream; past it the kernel's buffer is unspecified
+    for g, r in zip(got[:5] + got[6:], ref[:5] + ref[6:]):
         assert torch.equal(g, r)
+    assert torch.equal(_pairs(got), _pairs(ref))
     codes, sizes = ref[:2]
     enc = th.encode_chunks_np(host, cuda_device)
     sel = np.nonzero(enc[2])[0]

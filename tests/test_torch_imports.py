@@ -26,10 +26,12 @@ data = (b" ".join(words[i] for i in rng.integers(0, 5, 12000))
 blob = k.compress_bytes(data, *LEVEL_TABLE[level], block_size=1 << 16,
                         device="cpu")
 assert k.decompress_bytes(blob, device="cpu") == data
-coder = {2: "huff", 3: "huff", 4: "ans0", 5: "ans0"}.get(level)
-if coder:
-    assert ops.COUNTERS[coder + "_encode_scan_plain"] >= 1, ops.COUNTERS
-    assert ops.COUNTERS[coder + "_decode_plain"] >= 1, ops.COUNTERS
+encoder = {2: "huff_pack", 3: "huff_pack", 4: "ans0_encode_scan",
+           5: "ans0_encode_scan"}.get(level)
+if encoder:
+    assert ops.COUNTERS[encoder + "_plain"] >= 1, ops.COUNTERS
+    decoder = encoder.split("_")[0] + "_decode_plain"
+    assert ops.COUNTERS[decoder] >= 1, ops.COUNTERS
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
 print("FOREIGN_MODULES", bad)
