@@ -18,9 +18,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    there is one (library_ms), and compute each kernel's bound from the
    bytes and operations of these inputs (D's and F's as one function
    each, split between their two kernels). Kernels A-E at the main
-   path's shape (4096 chunks of 16 KiB), D's code-table prologue and its
-   pack timed apart. F (order-1 ANS: F1 the gather, F2 the chain, timed
-   apart) and G (FPAQ) are held against their plain versions on the
+   path's shape (4096 chunks of 16 KiB; A's time also per dependent
+   step), D's code-table prologue and its pack timed apart; D's
+   prologue also on 512 geometric chunks, whose codes run past 12 bits
+   (the length limit and its slow path on the card), every chunk of
+   more than one symbol required ok. F (order-1 ANS: F1 the gather, F2
+   the chain, timed apart) and G (FPAQ) are held against their plain
+   versions on the
    card, timed once, at shapes those finish in seconds (F: 16 chunks of
    64 KiB; G: 64 streams of 8 KiB with 2 KiB FPAQ chunks); against
    their plain versions run on the
@@ -45,10 +49,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    output byte-identical with the host path (the same container with
    kanzi_tpu_torch.ops disabled: the port's native C++ coders), and
    every kernel of the path launched (F once for the 16 ANS1 blocks,
-   no compaction B for Huffman); then one run of each Huffman
-   direction and of the ANS1 and FPAQ encodes under torch.profiler
-   (device time by kernel and copy, the device's idle share) and under
-   cProfile (host self time);
+   no compaction B and no chunk coded on the host, huff_host_chunks,
+   for Huffman); then one run of each Huffman direction and of the ANS1
+   and FPAQ encodes under torch.profiler (device time by kernel, the
+   copies' sums by kind, the device's idle share) and under cProfile
+   (host self time);
 6. round-trip 1 MiB of it through the port at every level 0-9;
 7. compress and decompress 16 MiB of it at level 5, at the default level
    (3, no -l) and at level 6 with 256 KiB blocks (64 FPAQ blocks of
@@ -76,7 +81,12 @@ its main path, its largest difference from the plain version, its time,
 the plain version's, its bound and the library call's; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits
 non-zero before printing either. Scratch files go to build/chip_smoke/.
-(``chip_smoke.py --plain FILE`` is the worker mode of phase 4.)
+(``chip_smoke.py --plain FILE`` is the worker mode of phase 4.
+``chip_smoke.py --kernels`` runs phases 1-3 and phase 4's kernels A-E
+only, prints their lines and no JSON: a short check of those kernels
+while one of them is redesigned. ``chip_smoke.py --containers`` runs
+phases 1-3 and 5 only, no plain workers beside them, and no JSON: the
+container rates of two trees compared in one call.)
 """
 
 import cProfile
@@ -302,6 +312,10 @@ def profile(label: str, fn) -> None:
         f"wall, idle share {1 - busy / wall:.4f}")
     for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  device {us / 1000:9.3f} ms  {name[:90]}")
+    copies = {k: v for k, v in dev.items() if k.startswith("Memcpy")}
+    log("  copies: " + (", ".join(
+        f"{k} {v / 1000:.3f} ms" for k, v in sorted(copies.items()))
+        or "none"))
     pr = cProfile.Profile()
     pr.enable()
     fn()
@@ -331,14 +345,23 @@ def check_ans0_kernels(chunks, dans) -> dict:
     got = dans.ans0_encode_scan(chunks, packed, inv)
     ref = dans.ans0_encode_scan_plain(chunks, packed, inv)
     states, vm, nren = got
+    # and a batch that leaves the kernel's last block of 8 chunks ragged
+    ragged = dans.ans0_encode_scan(chunks[:13], packed[:13], inv[:13])
     res["ans0_encode_scan"] = dict(
-        err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        err=max(max_abs_err(g, r) for g, r in zip(
+            got + ragged, ref + tuple(x[:13] for x in ref))),
         ms=median_ms(lambda: dans.ans0_encode_scan(chunks, packed, inv), 5),
         plain_ms=median_ms(
             lambda: dans.ans0_encode_scan_plain(chunks, packed, inv), 2),
         library_ms=gather_ms(packed, chunks),
         **bound("ans0_encode_scan", nbytes(chunks, packed, inv, *got),
                 chunks.numel()))
+
+    log(f"kernel A (ans0_encode_scan) at C={chunks.shape[0]}: "
+        f"{res['ans0_encode_scan']['ms']} ms, "
+        f"{1e6 * res['ans0_encode_scan']['ms'] / dans.STEPS:.2f} ns per "
+        f"dependent step ({dans.STEPS} a lane); torch.gather "
+        f"{res['ans0_encode_scan']['library_ms']} ms")
 
     # B: compaction
     plen16 = nren.long().sum(1)
@@ -398,17 +421,53 @@ def fragments(enc) -> list:
     return out
 
 
+def geometric_chunks(n: int) -> np.ndarray:
+    """n chunks of geometric bytes, chunk i from seed i: a long tail of
+    rare symbols, so that many codes run past 12 bits (the test suite's
+    _geometric); seeds 90, 263 and 348 take the length limit's slow path,
+    90 then its 8-bit codes."""
+    out = np.empty((n, 16384), np.uint8)
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        out[i] = rng.geometric(rng.uniform(0.3, 0.7), 16384)
+    return out
+
+
+def length_limits(dhuff, hist) -> tuple:
+    """(chunks whose code runs past 12 bits, chunks of those that take
+    the limit's slow path), from the plain version's limit."""
+    lens, sbr, m = dhuff.code_lengths_by_rank(hist)
+    over = (m > 1) & (lens[:, 0] > dhuff.MAX_SYMBOL_SIZE)
+    slow = dhuff.limit_code_lengths(lens, sbr, m, hist)[2]
+    return int(over.sum()), int(slow.sum())
+
+
 def check_huffman_kernels(chunks, dhuff) -> tuple:
     hist = dhuff.histogram(chunks)
     tables_ms = median_ms(lambda: dhuff.compute_code_tables(hist), 3)
     res = {}
+
+    # D's prologue on chunks past 12 bits, the slow path's among them
+    geo = torch.from_numpy(geometric_chunks(512)).to(chunks.device)
+    geo_hist = dhuff.histogram(geo)
+    got = dhuff.huff_code_tables(geo, geo_hist)
+    ref = dhuff.huff_code_tables_plain(geo, geo_hist)
+    geo_err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    over, slow = length_limits(dhuff, geo_hist)
+    log(f"kernel huff_code_tables on {len(geo)} geometric chunks: "
+        f"max_abs_err {geo_err} against its plain version; {over} codes "
+        f"past 12 bits, {slow} of them through the limit's slow path; "
+        f"{int(got[4].sum())} ok")
+    if slow < 1 or not torch.equal(got[4], got[3] > 1):
+        fail("huff_code_tables: the geometric chunks did not take the "
+             "slow path, or a chunk of more than one symbol is not ok")
 
     # D's prologue: code tables and each fragment's bit count
     got = dhuff.huff_code_tables(chunks, hist)
     ref = dhuff.huff_code_tables_plain(chunks, hist)
     codes, sizes, maxlen, m, ok, bits = got
     res["huff_code_tables"] = dict(
-        err=max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        err=max(geo_err, *(max_abs_err(g, r) for g, r in zip(got, ref))),
         ms=median_ms(lambda: dhuff.huff_code_tables(chunks, hist), 5),
         plain_ms=median_ms(
             lambda: dhuff.huff_code_tables_plain(chunks, hist), 2),
@@ -469,10 +528,14 @@ def check_huffman_kernels(chunks, dhuff) -> tuple:
         **bound("huff_decode", nbytes(tbl, pay, bounds, got), got.numel()))
     if not torch.equal(got, chunks[sel]):
         fail("huff_decode does not round-trip the encoded chunks")
+    over, slow = length_limits(dhuff, hist)
     log(f"huffman: {int(ok.sum())} of {len(ok)} chunks coded on the card "
-        f"(the rest: alphabet of one symbol or a code over 12 bits); code "
-        f"tables alone in plain torch (compute_code_tables, {len(ok)} "
-        f"chunks, median): {tables_ms} ms")
+        f"(the rest: one symbol, a header only); {over} codes past 12 "
+        f"bits limited on the card, {slow} of them through the slow path; "
+        f"code tables alone in plain torch (compute_code_tables, "
+        f"{len(ok)} chunks, median): {tables_ms} ms")
+    if not torch.equal(ok, m > 1):
+        fail("huff_code_tables: a chunk of more than one symbol is not ok")
     return res
 
 
@@ -879,14 +942,34 @@ def check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate) -> None:
         f"3): {b * n / MiB / best:.1f} MiB/s ({best:.3f} s)")
 
 
-def main() -> None:
+def report_kernels(kres: dict) -> None:
+    """Print each kernel's line of phase 4; fail on any difference from
+    its plain version."""
+    for k, r in kres.items():
+        shape = {"ans1_gather": "16 chunks of 4 MiB; plain on the card "
+                                "at 16 x 64 KiB",
+                 "ans1_chain": "16 chunks of 4 MiB; plain on the card at "
+                               "16 x 64 KiB",
+                 "fpaq_encode": "16 streams of 4 MiB; plain on the card "
+                                "at 64 x 8 KiB",
+                 "sbrt": "16 RANK inputs of 4 MiB + 33, forward; plain on "
+                         "the card at 16 x 16 KiB"
+                 }.get(k, f"C={N_CHUNKS}")
+        log(f"kernel {k}: max_abs_err {r['err']} kernel_ms {r['ms']} "
+            f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
+            f"bound_ms {r['bound_ms']} ({r['bound_by']}) ({shape})")
+        if r["err"] != 0:
+            fail(f"{k} differs from its plain version")
+
+
+def main(mode: str) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script runs only "
              "on a CUDA card")
     sys.path.insert(0, str(ROOT))
     workers = {}
     try:
-        run(workers)
+        run(workers, mode)
     finally:
         for _, proc in workers.values():
             if proc.poll() is None:
@@ -894,7 +977,9 @@ def main() -> None:
             proc.wait()
 
 
-def run(workers: dict) -> None:
+def run(workers: dict, mode: str) -> None:
+    """Phases 1-9 (mode "full"); 1-4 for A-E only ("kernels"); 1-3
+    and 5 ("containers")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -931,40 +1016,33 @@ def run(workers: dict) -> None:
     corpus = make_corpus(N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
     dev = torch.device("cuda", 0)
-    rank_in = l5_rank_inputs(corpus, pp, dev)
-    WORK.mkdir(parents=True, exist_ok=True)
-    workers.update(start_plain_workers(corpus, dans1, dfp, native, rank_in))
+    if mode == "full":
+        rank_in = l5_rank_inputs(corpus, pp, dev)
+        WORK.mkdir(parents=True, exist_ok=True)
+        workers.update(start_plain_workers(corpus, dans1, dfp, native,
+                                           rank_in))
     full_got = {}
 
     # 4. kernels against their plain versions at the main path's shape
-    chunks = torch.frombuffer(bytearray(corpus), dtype=torch.uint8).view(
-        N_CHUNKS, dans.CHUNK).to(dev)
-    kres = check_ans0_kernels(chunks, dans)
-    kres.update(check_huffman_kernels(chunks, dhuff))
-    del chunks
-    kres.update(check_ans1_kernel(corpus, dans1, native, dev,
-                                  workers["ans1_encode_scan"][0], full_got))
-    kres.update(check_fpaq_kernel(corpus, dfp, native, dev,
-                                  workers["fpaq_encode"][0], full_got))
-    kres.update(check_sbrt_kernel(rank_in, dsb, native,
-                                  workers["sbrt"][0], full_got))
-    del rank_in
-    torch.cuda.empty_cache()
-    for k, r in kres.items():
-        shape = {"ans1_gather": "16 chunks of 4 MiB; plain on the card "
-                                "at 16 x 64 KiB",
-                 "ans1_chain": "16 chunks of 4 MiB; plain on the card at "
-                               "16 x 64 KiB",
-                 "fpaq_encode": "16 streams of 4 MiB; plain on the card "
-                                "at 64 x 8 KiB",
-                 "sbrt": "16 RANK inputs of 4 MiB + 33, forward; plain on "
-                         "the card at 16 x 16 KiB"
-                 }.get(k, f"C={N_CHUNKS}")
-        log(f"kernel {k}: max_abs_err {r['err']} kernel_ms {r['ms']} "
-            f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
-            f"bound_ms {r['bound_ms']} ({r['bound_by']}) ({shape})")
-        if r["err"] != 0:
-            fail(f"{k} differs from its plain version")
+    if mode != "containers":
+        chunks = torch.frombuffer(bytearray(corpus), dtype=torch.uint8
+                                  ).view(N_CHUNKS, dans.CHUNK).to(dev)
+        kres = check_ans0_kernels(chunks, dans)
+        kres.update(check_huffman_kernels(chunks, dhuff))
+        del chunks
+        if mode == "kernels":
+            report_kernels(kres)
+            return
+        kres.update(check_ans1_kernel(corpus, dans1, native, dev,
+                                      workers["ans1_encode_scan"][0],
+                                      full_got))
+        kres.update(check_fpaq_kernel(corpus, dfp, native, dev,
+                                      workers["fpaq_encode"][0], full_got))
+        kres.update(check_sbrt_kernel(rank_in, dsb, native,
+                                      workers["sbrt"][0], full_got))
+        del rank_in
+        torch.cuda.empty_cache()
+        report_kernels(kres)
 
     # 5. the main paths on the card. An untimed pass over one block of
     # each first builds the native host libraries (g++, at first use).
@@ -1009,6 +1087,12 @@ def run(workers: dict) -> None:
             launches[k] = launches.get(k, 0) + counts[k]
         if entropy == "HUFFMAN" and "ans0_compact" in counts:
             fail("the NONE/HUFFMAN container launched the compaction B")
+        if entropy == "HUFFMAN":
+            # the card limits over-long codes, its slow path included
+            log(f"container NONE/HUFFMAN: huff_host_chunks "
+                f"{counts.get('huff_host_chunks', 0)}")
+            if counts.get("huff_host_chunks", 0):
+                fail("the NONE/HUFFMAN container coded chunks on the host")
         if entropy == "ANS1" and (counts["ans1_gather"] != 1
                                   or counts["ans1_chain"] != 1):
             fail("the 16 blocks of the NONE/ANS1 container took more than "
@@ -1038,6 +1122,8 @@ def run(workers: dict) -> None:
         log(f"device encode stage ({mod.__name__}.encode_chunks_np, "
             f"{len(chunks_np)} chunks, host->device copy and back "
             f"included): {t_stage:.3f} s, {rate(t_stage)}")
+    if mode == "containers":
+        return
 
     # 6. every level through the port (this also builds every native
     # host library before the CLI's timed runs)
@@ -1094,8 +1180,10 @@ def run(workers: dict) -> None:
                         fail(f"kernel {k} was not launched by the level-"
                              f"{level} CLI")
                     launches[k] += counts[k]
-                if level == 3 and "ans0_compact" in counts:
-                    fail("the level-3 CLI launched the compaction B")
+                if level == 3 and ("ans0_compact" in counts
+                                   or "huff_host_chunks" in counts):
+                    fail("the level-3 CLI launched the compaction B or "
+                         "coded chunks on the host")
                 log(f"level {level} CLI ({' '.join(flags) or 'no -l'}) on "
                     f"the card: launches {counts}")
             elif counts:
@@ -1137,4 +1225,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--plain"]:
         plain_worker(Path(sys.argv[2]))
     else:
-        main()
+        main({"--kernels": "kernels", "--containers": "containers"}.get(
+            sys.argv[1] if sys.argv[1:] else "", "full"))

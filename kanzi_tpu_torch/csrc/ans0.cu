@@ -26,23 +26,68 @@ constexpr uint32_t kAnsTop = 1u << 15;
 
 // ---------------------------------------------------------------------
 // A. Encode scan. One thread per (chunk, lane); lane l walks its symbols
-// backwards, chunk[16383 - 4t - l] at step t. The chunk's two 256-entry
-// tables (packed = bias<<16 | cmplFreq<<4 | invShift-31, and invFreq)
-// sit in shared memory, so the gather that the TPU ran as a separate
-// 128-lane split-table pass becomes one shared load per step.
+// backwards, chunk[16383 - 4t - l] at step t, 4096 dependent steps:
+// compare with xmax, the renorm select, __umulhi, shift, multiply-add
+// (~26 cycles). The chunk's two 256-entry tables (packed =
+// bias<<16 | cmplFreq<<4 | invShift-31, and invFreq) sit in shared
+// memory, repacked at the load as F1 packs its words (ans1.cu): invFreq,
+// then shift - 1 | bias << 5 | cmplFreq << 18, one 8-byte entry a
+// symbol, so the gather that the TPU ran as a separate 128-lane
+// split-table pass is one shared load a step.
 //
-// Bound: the 4096-step dependent chain of each lane (shared load,
-// __umulhi, add), i.e. latency, not bandwidth: the whole batch moves
-// 16 KiB in and 64 KiB of slots out per chunk. The design keeps every
-// chunk of a 4096-chunk batch resident at once (64 threads and 8 KiB of
-// shared memory per 16 chunks) so the card overlaps the chains.
+// Bound: the chains, 16384 at 4096 chunks, about one warp of them per
+// SM sub-partition, so no other warp hides what a chain's warp waits
+// on. The first design (a 1-byte global load and a strided 4-byte
+// store a step, 16 chunks a block) took 0.485-0.515 ms at 4096 chunks
+// on an H100 80GB HBM3 at 700 W, ~120 ns a step (PERF.md): it waited on
+// memory every step. This one keeps memory off the step:
+// - a block is one warp of 8 chunks (512 blocks at 4096 chunks), its
+//   tables 16 KiB of shared memory;
+// - the symbols come 16 steps at a time: each of a chunk's 4 threads
+//   loads one 16-byte word of the chunk's next 64 bytes, three groups
+//   ahead, and the words go round the chunk's threads by __shfl_sync;
+//   the next group's 16 table loads are issued in the source before the
+//   current group's chain;
+// - the slots go to a shared staging row of the chunk (padded against
+//   bank conflicts) and leave as 16-byte stores, 64 contiguous bytes a
+//   chunk and store instruction;
+// - the step is F2's: the renorm as a select into a new register, the
+//   shift a wrap-mode funnel shift, x + bias off the chain.
+// It takes 0.274 ms, 67 ns a step, on the same card: ptxas runs a
+// group's 16 chain steps, then its shuffles, table loads and slot
+// stores, in series (PERF.md). A design with the feed in a warp of its
+// own (two warps a block, one __syncthreads a group) took 0.341 ms.
 //
 // Output: final states [C,4] u32, per-lane renorm counts [C,4], and the
 // slots in emission order (reversed steps x reversed lanes) as
 // vm[C,16384] = flag<<16 | lo<<8 | hi -- the vm of _ans0_encode_impl.
 // ---------------------------------------------------------------------
 
-constexpr int kEncChunks = 16;   // chunks per block, 4 threads each
+constexpr int kEncChunks = 8;                // chunks per block: one warp
+constexpr int kGroup = 16;                   // steps per 16-byte word
+constexpr int kGroups = kSteps / kGroup;
+constexpr int kStageStride = 4 * kGroup + 4; // ints; padded: no bank
+                                             // conflict on the stores
+
+// A group's 16 encode words of this thread's lane: word j of the
+// chunk's 4 (held by the chunk's thread j) carries steps 4j .. 4j+3,
+// lane l's symbol of step 4j + k at byte 3 - l of its 32-bit word 3 - k.
+__device__ __forceinline__ void ans0_lookup(const uint4& w, int tid,
+                                            int byte_shift,
+                                            const uint2* __restrict__ tab,
+                                            uint2 (&e)[kGroup]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int from = (tid & ~3) | j;
+    const uint32_t wd[4] = {__shfl_sync(0xFFFFFFFFu, w.x, from),
+                            __shfl_sync(0xFFFFFFFFu, w.y, from),
+                            __shfl_sync(0xFFFFFFFFu, w.z, from),
+                            __shfl_sync(0xFFFFFFFFu, w.w, from)};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      e[4 * j + k] = tab[(wd[3 - k] >> byte_shift) & 0xFF];
+  }
+}
 
 __global__ void __launch_bounds__(kEncChunks * 4)
 ans0_encode_scan_kernel(const uint8_t* __restrict__ chunks,
@@ -51,44 +96,85 @@ ans0_encode_scan_kernel(const uint8_t* __restrict__ chunks,
                         uint32_t* __restrict__ states,
                         int32_t* __restrict__ vm,
                         int32_t* __restrict__ nren) {
-  __shared__ uint32_t s_pk[kEncChunks][256];
-  __shared__ uint32_t s_inv[kEncChunks][256];
+  __shared__ uint2 s_tab[kEncChunks][256];
+  __shared__ __align__(16) int32_t s_stage[kEncChunks][kStageStride];
+  const int tid = threadIdx.x;
   const int c0 = blockIdx.x * kEncChunks;
-  for (int i = threadIdx.x; i < kEncChunks * 256; i += blockDim.x) {
-    const int c = c0 + (i >> 8);
-    if (c < n_chunks) {
-      s_pk[i >> 8][i & 255] = packed[(size_t)c * 256 + (i & 255)];
-      s_inv[i >> 8][i & 255] = inv[(size_t)c * 256 + (i & 255)];
-    }
+  for (int i = tid; i < kEncChunks * 256; i += 32) {
+    const int g = i >> 8, sym = i & 255;
+    const size_t c = (size_t)min(c0 + g, n_chunks - 1);
+    const uint32_t pk = packed[c * 256 + sym];
+    s_tab[g][sym] = make_uint2(
+        inv[c * 256 + sym],
+        ((pk & 0xF) - 1) | (pk >> 16) << 5 | ((pk >> 4) & 0xFFF) << 18);
   }
-  __syncthreads();
+  __syncwarp();
 
-  const int g = threadIdx.x >> 2;
-  const int lane = threadIdx.x & 3;
+  const int g = tid >> 2;
+  const int lane = tid & 3;
   const int c = c0 + g;
-  if (c >= n_chunks) return;
-  const uint8_t* src = chunks + (size_t)c * kChunk;
-  int32_t* out = vm + (size_t)c * kChunk;
+  const bool live = c < n_chunks;    // the rest compute on the last chunk
+  const uint4* src = reinterpret_cast<const uint4*>(
+      chunks + (size_t)min(c, n_chunks - 1) * kChunk);
+  const uint2* tab = s_tab[g];
+  const int byte_shift = 24 - 8 * lane;
+  int32_t* stage = s_stage[g] + 3 - lane;
+  int4* out = reinterpret_cast<int4*>(vm + (size_t)c * kChunk);
+  // group G (steps 16G .. 16G+15) reads the chunk's bytes
+  // [16384 - 64(G+1), 16384 - 64G), its 16-byte words 1023 - 4G - j for
+  // j = 0..3; thread `lane` loads word j = lane
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  uint4 w1 = src[kChunk / 16 - 5 - lane];
+  uint4 w2 = src[kChunk / 16 - 9 - lane];
+  uint2 cur[kGroup], nxt[kGroup];
+  ans0_lookup(src[kChunk / 16 - 1 - lane], tid, byte_shift, tab, cur);
   uint32_t st = kAnsTop;
   int32_t cnt = 0;
-  for (int t = 0; t < kSteps; ++t) {
-    const uint32_t s = src[kChunk - 1 - 4 * t - lane];
-    const uint32_t pk = s_pk[g][s];
-    const uint32_t iv = s_inv[g][s];
-    const uint32_t bias = pk >> 16;
-    const uint32_t cmpl = (pk >> 4) & 0xFFF;
-    const uint32_t sp = pk & 0xF;
-    const uint32_t xmax = (kScale - cmpl) << (31 - kLogRange);
-    const uint32_t flag = st >= xmax ? 1u : 0u;
-    out[(kSteps - 1 - t) * 4 + 3 - lane] =
-        (int32_t)((flag << 16) | ((st & 0xFF) << 8) | ((st >> 8) & 0xFF));
-    cnt += (int32_t)flag;
-    if (flag) st >>= 16;
-    const uint32_t q = __umulhi(st, iv) >> (sp - 1);
-    st = st + bias + q * cmpl;
+  for (int grp = 0; grp < kGroups; ++grp) {
+    const uint4 w3 = grp + 3 < kGroups
+        ? src[kChunk / 16 - 1 - 4 * (grp + 3) - lane] : zero;
+    ans0_lookup(w1, tid, byte_shift, tab, nxt);
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const uint32_t h = cur[k].y;
+      const uint32_t bias = (h >> 5) & 0x1FFFu;
+      const uint32_t cmpl = h >> 18;
+      const uint32_t xmax = (kScale - cmpl) << (31 - kLogRange);
+      // x = st >= xmax ? st >> 16 : st as a select into a new register
+      uint32_t x;
+      asm("{\n\t.reg .pred p;\n\tsetp.ge.u32 p, %1, %2;\n\t"
+          "selp.b32 %0, %3, %1, p;\n\t}"
+          : "=r"(x) : "r"(st), "r"(xmax), "r"(st >> 16));
+      // >> (shift - 1): the wrap-mode funnel shift reads h's low 5 bits
+      const uint32_t qv = __funnelshift_r(__umulhi(x, cur[k].x), 0u, h);
+      uint32_t nst;
+      asm("mad.lo.u32 %0, %1, %2, %3;"
+          : "=r"(nst) : "r"(qv), "r"(cmpl), "r"(x + bias));
+      // flag<<16 | lo<<8 | hi at its emission-order place in the group;
+      // x != st exactly where the lane renormalised
+      const uint32_t flag = x != st ? 1u : 0u;
+      stage[(kGroup - 1 - k) * 4] = (int32_t)__byte_perm(st, flag, 0x5401);
+      cnt += (int32_t)flag;
+      st = nst;
+    }
+    __syncwarp();
+    // the group's 64 slots of each chunk: ints [16320 - 64G, 16384 - 64G)
+    if (live) {
+      const int4* s4 = reinterpret_cast<const int4*>(s_stage[g]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        out[kChunk / 4 - 16 * (grp + 1) + 4 * i + lane] = s4[4 * i + lane];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) cur[k] = nxt[k];
+    w1 = w2;
+    w2 = w3;
   }
-  states[(size_t)c * 4 + lane] = st;
-  nren[(size_t)c * 4 + lane] = cnt;
+  if (live) {
+    states[(size_t)c * 4 + lane] = st;
+    nren[(size_t)c * 4 + lane] = cnt;
+  }
 }
 
 // ---------------------------------------------------------------------

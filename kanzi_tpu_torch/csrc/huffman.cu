@@ -41,12 +41,19 @@ constexpr int kTable = 1 << 12;   // 12-bit prefix table
 //    design ran them on thread 0 of the chunk's 256-thread block, so each
 //    block sat idle through them: the prologue took 0.465 ms at 4096
 //    chunks, more than the pack, on an H100 80GB HBM3 at 700 W (PERF.md).
-//    The lengths by rank go to `codes` (scratch here).
+//    A chunk whose code runs past 12 bits then has its lengths limited
+//    in the same thread, by the reference's bit-debt repayment
+//    (HuffmanEncoder.cpp:129-215, ops/huffman.py _repay_debt) and, where
+//    debt is left, its slow path (_slow_path_lengths): the counts
+//    renormalised to 2048, ranked again by an insertion sort, new
+//    lengths, 8 bits each if those still pass 12. About half of the
+//    corpus's chunks need the limit; before, the host coded them one at
+//    a time. The lengths by rank go to `codes` (scratch here); a chunk of
+//    the slow path writes its new keys by rank over `sizes`.
 // 3. Codes: one block per chunk again. The canonical codes are the
-//    per-length counting construction of compute_code_tables (a length
-//    over 12 bits is clamped to 13 there; such chunks are not ok and the
-//    host codes them), each symbol's rank among the same length in symbol
-//    order from __match_any_sync and per-warp counts. Last, a short pass
+//    per-length counting construction of compute_code_tables, each
+//    symbol's rank among the same length in symbol order from
+//    __match_any_sync and per-warp counts. Last, a short pass
 //    over the chunk's 16 KiB (64 bytes a thread) sums the code lengths of
 //    each fragment: its bit count, from which the pack's offsets follow.
 //
@@ -84,33 +91,30 @@ huff_ranks_kernel(const int64_t* __restrict__ hist,
   if (sym == 0) m_out[c] = m;
 }
 
-__global__ void __launch_bounds__(kLenChunks)
-huff_lengths_kernel(const int32_t* __restrict__ keys,
-                    const int32_t* __restrict__ m_in, int n_chunks,
-                    int32_t* __restrict__ lens_out) {
-  __shared__ int32_t s_d[256][kLenChunks];
-  const int t = threadIdx.x;
-  const int c = blockIdx.x * kLenChunks + t;
-  if (c >= n_chunks) return;
-#define D(i) s_d[(i)][t]
-  for (int i = 0; i < 256; ++i) D(i) = keys[(size_t)c * 256 + i] >> 8;
-  const int m = m_in[c];
+// A thread's column of the lengths kernel's shared memory: entry i of
+// its chunk at s[i][t], so that the 32 threads of a warp hit 32 banks.
+typedef int32_t LenCol[kLenChunks];
+
+// Moffat-Katajainen on the column: the m frequencies by rank (ascending)
+// in, the lengths by rank out
+__device__ void mk_lengths(LenCol* s, int t, int m) {
+#define D(i) s[(i)][t]
   // phase 1: in-place tree build (entropy/huffman.py
   // _compute_inplace_phase1)
-  int s = 0, r = 0;
+  int sp = 0, r = 0;
   for (int it = 0; it < m - 1; ++it) {
     int32_t total = 0;
     for (int k = 0; k < 2; ++k) {
       const int32_t dr = D(min(r, 255));
-      const int32_t ds = D(min(s, 255));
-      const bool use_r = s >= m || (r < it && dr < ds);
+      const int32_t ds = D(min(sp, 255));
+      const bool use_r = sp >= m || (r < it && dr < ds);
       total += use_r ? dr : ds;
       if (use_r) {
         D(min(r, 255)) = it;
         ++r;
       } else {
-        if (s > it) D(min(s, 255)) = 0;
-        ++s;
+        if (sp > it) D(min(sp, 255)) = 0;
+        ++sp;
       }
     }
     D(it) = total;
@@ -129,8 +133,128 @@ huff_lengths_kernel(const int32_t* __restrict__ keys,
     ++depth;
     nal = 2 * internal;
   }
-  for (int i = 0; i < 256; ++i) lens_out[(size_t)c * 256 + i] = D(i);
 #undef D
+}
+
+// The bit-debt repayment on the column's m lengths by rank, the first
+// over 12 (ops/huffman.py _repay_debt): the reference's six lists of
+// ranks are runs of consecutive ranks, since the lengths fall with the
+// rank, each kept as [head, end). Returns the debt left.
+__device__ int repay_debt(LenCol* s, int t, int m) {
+#define D(i) s[(i)][t]
+  int n = 0, debt = 0;
+  for (; n < m && D(n) >= kMaxSym; ++n) {
+    debt += D(n) - kMaxSym;
+    D(n) = kMaxSym;
+  }
+  int head[6], end[6];
+  for (int i = 0; i < 6; ++i) head[i] = end[i] = n;
+  for (; n < m; ++n) {
+    const int idx = kMaxSym - 1 - D(n);
+    if (idx > 5 || debt < (1 << idx)) break;
+    if (head[idx] == end[idx]) head[idx] = n;
+    end[idx] = n + 1;
+  }
+  for (int idx = 5; idx >= 0; --idx) {
+    for (; debt >= (1 << idx) && head[idx] < end[idx]; ++head[idx]) {
+      ++D(head[idx]);
+      debt -= 1 << idx;
+    }
+  }
+  for (int idx = 0; idx < 6; ++idx) {
+    for (; debt > 0 && head[idx] < end[idx]; ++head[idx]) {
+      ++D(head[idx]);
+      debt -= 1 << idx;
+    }
+  }
+  return debt;
+#undef D
+}
+
+constexpr int64_t kLimitScale = kChunk >> 3;   // the slow path's total
+
+// The slow path of the limit (ops/huffman.py _slow_path_lengths): the
+// chunk's counts h renormalised to kLimitScale as normalize_freqs does
+// (native/transforms.cpp, EntropyUtils::normalizeFrequencies; m > 1
+// here), the new (freq << 8 | sym) keys sorted into keys[0..m) and the
+// column, then new lengths on the column, 8 bits each past 12.
+__device__ void slow_path_lengths(LenCol* s, int t, int m,
+                                  const int64_t* __restrict__ h,
+                                  int32_t* __restrict__ keys) {
+#define D(i) s[(i)][t]
+  int64_t total = 0;
+  for (int i = 0; i < 256; ++i) total += h[i];
+  int64_t sum_scaled = 0;
+  int idx_max = 0;
+  for (int i = 0; i < 256; ++i) {
+    const int64_t sf = h[i] * kLimitScale;
+    const int32_t scaled = h[i] == 0 ? 0
+        : (int32_t)(total == kLimitScale ? h[i]
+                    : sf <= total ? 1 : (sf + (total >> 1)) / total);
+    D(i) = scaled;
+    sum_scaled += scaled;
+    if (scaled > D(idx_max)) idx_max = i;
+  }
+  if (total != kLimitScale && sum_scaled != kLimitScale) {
+    int64_t delta = sum_scaled - kLimitScale;
+    const int64_t thr = D(idx_max) >> 4;
+    if ((delta < 0 ? -delta : delta) <= thr) {
+      D(idx_max) -= (int32_t)delta;
+    } else {
+      D(idx_max) += (int32_t)(delta < 0 ? thr : -thr);
+      delta += delta < 0 ? thr : -thr;
+      const int inc = delta < 0 ? 1 : -1;
+      delta = delta < 0 ? -delta : delta;
+      for (int rnd = 0; rnd < 5 && delta > 0; ++rnd) {
+        int adjustments = 0;
+        for (int i = 0; i < 256 && delta > 0; ++i) {
+          if (D(i) <= 2) continue;
+          D(i) += inc;
+          ++adjustments;
+          --delta;
+        }
+        if (adjustments == 0) break;
+      }
+      D(idx_max) = (int32_t)max((int64_t)D(idx_max) - delta, (int64_t)1);
+    }
+  }
+  // the keys of the present symbols, in place (j <= i), then sorted
+  int j = 0;
+  for (int i = 0; i < 256; ++i)
+    if (D(i) > 0) D(j++) = (D(i) << 8) | i;
+  for (int i = 1; i < m; ++i) {
+    const int32_t k = D(i);
+    int p = i;
+    for (; p > 0 && D(p - 1) > k; --p) D(p) = D(p - 1);
+    D(p) = k;
+  }
+  for (int i = 0; i < m; ++i) {
+    keys[i] = D(i);
+    D(i) >>= 8;
+  }
+  mk_lengths(s, t, m);
+  if (D(0) > kMaxSym)
+    for (int i = 0; i < m; ++i) D(i) = 8;
+#undef D
+}
+
+__global__ void __launch_bounds__(kLenChunks)
+huff_lengths_kernel(int32_t* __restrict__ keys,
+                    const int32_t* __restrict__ m_in,
+                    const int64_t* __restrict__ hist, int n_chunks,
+                    int32_t* __restrict__ lens_out) {
+  __shared__ int32_t s_d[256][kLenChunks];
+  const int t = threadIdx.x;
+  const int c = blockIdx.x * kLenChunks + t;
+  if (c >= n_chunks) return;
+  int32_t* ck = keys + (size_t)c * 256;
+  for (int i = 0; i < 256; ++i) s_d[i][t] = ck[i] >> 8;
+  const int m = m_in[c];
+  mk_lengths(s_d, t, m);
+  // the length limit: rank 0 has the longest code
+  if (m > 1 && s_d[0][t] > kMaxSym && repay_debt(s_d, t, m) > 0)
+    slow_path_lengths(s_d, t, m, hist + (size_t)c * 256, ck);
+  for (int i = 0; i < 256; ++i) lens_out[(size_t)c * 256 + i] = s_d[i][t];
 }
 
 // codes: lengths by rank in, packed len<<12 | code by symbol out; sizes:
@@ -439,7 +563,8 @@ int huff_code_tables(const void* chunks, const void* hist, int n_chunks,
         (const int64_t*)hist, (int32_t*)sizes, (int32_t*)m);
     huff_lengths_kernel<<<(n_chunks + kLenChunks - 1) / kLenChunks,
                           kLenChunks, 0, st>>>(
-        (const int32_t*)sizes, (const int32_t*)m, n_chunks, (int32_t*)codes);
+        (int32_t*)sizes, (const int32_t*)m, (const int64_t*)hist, n_chunks,
+        (int32_t*)codes);
     huff_codes_kernel<<<n_chunks, 256, 0, st>>>(
         (const uint8_t*)chunks, (const int64_t*)hist, (const int32_t*)m,
         (uint32_t*)codes, (int32_t*)sizes, (int32_t*)maxlen, (uint8_t*)ok,

@@ -243,8 +243,10 @@ class HuffmanEncoder(EntropyEncoder):
     def _encode_device(self, block: np.ndarray, count: int) -> int:
         """Encode all full 16 KiB chunks with the CUDA kernels
         (kanzi_tpu_torch.ops.huffman), or take the container's prepared
-        batch; chunks whose max code length exceeds MAX_SYMBOL_SIZE take
-        the exact host bit-debt path. Returns the new start offset."""
+        batch. The kernels limit over-long codes themselves, so every
+        chunk is ok or of one symbol; a chunk that is neither would be
+        coded here on the host, counted as huff_host_chunks. Returns the
+        new start offset."""
         full = count // MAX_CHUNK_SIZE
         chunks = block[:full * MAX_CHUNK_SIZE].reshape(full, MAX_CHUNK_SIZE)
         prep = getattr(self, "prepared_device", None)
@@ -323,6 +325,7 @@ class HuffmanEncoder(EntropyEncoder):
                                 int(acc[ci, f]) & ((1 << rb) - 1), rb)
             else:
                 flush_native()
+                ops.count("huff_host_chunks")
                 chunk = chunks[ci]
                 res = (native.huff_enc_chunk(chunk)
                        if native.transforms_available() else None)

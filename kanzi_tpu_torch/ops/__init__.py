@@ -50,7 +50,9 @@ def device() -> torch.device:
 # Launch counters: a wrapper bumps its kernel's key where it launches the
 # kernel, and key + "_plain" where it takes the plain version for a CPU
 # tensor. The device BWT and the device level-5 chain count the blocks
-# they take ("bwt_forward_device", "l5_{encode,decode}_device_blocks").
+# they take ("bwt_forward_device", "l5_{encode,decode}_device_blocks"),
+# the Huffman coder the full chunks it codes on the host beside the
+# kernels ("huff_host_chunks").
 # Tests and chip_smoke.py read them to show which path ran.
 COUNTERS = {}
 _COUNT_LOCK = _threading.Lock()

@@ -222,6 +222,9 @@ def ans0_encode_scan(chunks, packed, inv):
     _check("inv", inv, torch.int32, (c, 256), dev)
     if _on_cpu("ans0_encode_scan", dev):
         return ans0_encode_scan_plain(chunks, packed, inv)
+    for name, t in (("chunks", chunks), ("packed", packed), ("inv", inv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
     states = torch.empty((c, 4), dtype=torch.int32, device=dev)
     vm = torch.empty((c, CHUNK), dtype=torch.int32, device=dev)
     nren = torch.empty((c, 4), dtype=torch.int32, device=dev)

@@ -9,23 +9,26 @@ fragments are the 4 lanes of every scan here.
 Plain PyTorch does what the JAX package left to XLA: the header bit
 packing and the decode tables, and, as the plain half of kernel D, the
 code tables (the reference's in-place Moffat-Katajainen construction,
-HuffmanEncoder.cpp:246-300, batched over chunks, and the canonical
-codes). Three hand-written CUDA kernels (csrc/huffman.cu) do the rest,
-each behind a wrapper with a plain PyTorch version beside it:
+HuffmanEncoder.cpp:246-300, batched over chunks, its length limit as a
+Python loop over the chunks that need it, and the canonical codes).
+Three hand-written CUDA kernels (csrc/huffman.cu) do the rest, each
+behind a wrapper with a plain PyTorch version beside it:
 
 - ``huff_encode_scan`` (D): ``huff_code_tables``, the code tables of
-  each chunk from its histogram and each fragment's bit count (a prologue
-  kernel, one block per chunk), then ``huff_pack``, every fragment's
-  codes straight into the flat pair stream at offsets cumsummed from
-  those counts, one warp a fragment (Pallas ``_gather_kernel1`` + the
-  ``lax.scan`` + the compaction).
+  each chunk from its histogram, its code lengths limited to 12 bits,
+  and each fragment's bit count (the prologue), then ``huff_pack``,
+  every fragment's codes straight into the flat pair stream at offsets
+  cumsummed from those counts, one warp a fragment (Pallas
+  ``_gather_kernel1`` + the ``lax.scan`` + the compaction).
 - ``huff_decode``: the 4-fragment decode through a direct 12-bit prefix
   table in shared memory (Pallas ``_huff_decode_kernel``).
 
-The Huffman encode launches no compaction (kernel B). Chunks with an
-alphabet of at most one symbol, or a code longer than MAX_SYMBOL_SIZE
-bits, are not encoded here (ok is false): the host codes them, with the
-exact bit-debt length limiting for the latter.
+The Huffman encode launches no compaction (kernel B). A chunk whose
+Moffat-Katajainen code runs past MAX_SYMBOL_SIZE bits has its lengths
+limited here, by the reference's bit-debt repayment (HuffmanEncoder.cpp:
+129-215) and its slow path, as the host coder does, so every chunk of
+more than one symbol is coded here (ok); a chunk of one symbol has only
+its header.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ FRAG = CHUNK // 4
 MAX_SYMBOL_SIZE = 12
 TABLE = 1 << MAX_SYMBOL_SIZE
 FRAG_MAX_BYTES = MAX_SYMBOL_SIZE * FRAG // 8   # 4096 codes of <= 12 bits
+LIMIT_SCALE = CHUNK >> 3    # the length limit's slow path renormalises to it
 
 
 # ---------------------------------------------------------------------------
@@ -101,23 +105,118 @@ def _code_lengths(fbr: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return data
 
 
+def _repay_debt(ln: list) -> int:
+    """The bit-debt repayment (HuffmanEncoder.cpp:129-215) on one
+    chunk's lengths by rank ln (non-increasing, the first over
+    MAX_SYMBOL_SIZE), in place. The ranks at 12 bits or more are clamped
+    to 12 and their excess is the debt; the ranks that follow, while the
+    debt covers 2^idx with idx = 11 - length <= 5, are the reference's six
+    lists, one run of consecutive ranks each (lengths fall with the
+    rank), kept as [head, end). Each repayment lengthens a code by one
+    bit, from the top list down, then from the bottom list up. Returns
+    the debt left: > 0 sends the chunk to the slow path."""
+    n, debt = 0, 0
+    while ln[n] >= MAX_SYMBOL_SIZE:
+        debt += ln[n] - MAX_SYMBOL_SIZE
+        ln[n] = MAX_SYMBOL_SIZE
+        n += 1
+    head, end = [n] * 6, [n] * 6
+    while n < len(ln):
+        idx = MAX_SYMBOL_SIZE - 1 - ln[n]
+        if idx > 5 or debt < 1 << idx:
+            break
+        if head[idx] == end[idx]:
+            head[idx] = n
+        end[idx] = n + 1
+        n += 1
+    for idx in range(5, -1, -1):
+        while debt >= 1 << idx and head[idx] < end[idx]:
+            ln[head[idx]] += 1
+            debt -= 1 << idx
+            head[idx] += 1
+    for idx in range(6):
+        while debt > 0 and head[idx] < end[idx]:
+            ln[head[idx]] += 1
+            debt -= 1 << idx
+            head[idx] += 1
+    return debt
+
+
+def _slow_path_lengths(h: torch.Tensor):
+    """The slow path of the limit (HuffmanEncoder.cpp:193-213): one
+    chunk's counts h [256] renormalised to LIMIT_SCALE
+    (EntropyUtils::normalizeFrequencies), ranked again and given new
+    Moffat-Katajainen lengths, 8 bits each if those still run past
+    MAX_SYMBOL_SIZE. Returns (lengths by rank, symbols by rank) as lists
+    of the m present symbols."""
+    from kanzi_tpu_torch.entropy.utils import normalize_frequencies
+    f = h.long().cpu().numpy().copy()
+    normalize_frequencies(f, 256, int(f.sum()), LIMIT_SCALE)
+    keys = sorted((int(f[s]) << 8) | s for s in np.nonzero(f)[0].tolist())
+    fbr = torch.tensor([k >> 8 for k in keys] + [0] * (256 - len(keys)))
+    ln = _code_lengths(fbr[None], torch.tensor([len(keys)]))[0]
+    ln = ln[:len(keys)].tolist()
+    if max(ln) > MAX_SYMBOL_SIZE:
+        ln = [8] * len(keys)
+    return ln, [k & 0xFF for k in keys]
+
+
+def limit_code_lengths(lens, sbr, m, hist):
+    """The length limit of every chunk whose code runs past
+    MAX_SYMBOL_SIZE bits, as the host coder applies it
+    (entropy.huffman._limit_code_lengths): lens [C, 256] lengths by rank
+    (_code_lengths), sbr [C, 256] symbols by rank, m [C] alphabet sizes,
+    hist [C, 256] counts. A Python loop over those chunks only. Returns
+    (lens, sbr, slow [C] bool): the limited lengths by rank, the symbols
+    by rank (new ranks for a chunk of the slow path), and the chunks
+    whose debt was left after both repayment passes."""
+    slow = torch.zeros(m.shape, dtype=torch.bool)
+    over = ((m > 1) & (lens[:, 0] > MAX_SYMBOL_SIZE)).cpu()
+    if not bool(over.any()):
+        return lens, sbr, slow.to(m.device)
+    lens, sbr = lens.clone(), sbr.clone()
+    for c in over.nonzero()[:, 0].tolist():
+        n = int(m[c])
+        ln = lens[c, :n].tolist()
+        if _repay_debt(ln) > 0:
+            slow[c] = True
+            ln, syms = _slow_path_lengths(hist[c])
+            sbr[c, :n] = torch.tensor(syms, device=sbr.device)
+        lens[c, :n] = torch.tensor(ln, device=lens.device)
+    return lens, sbr, slow.to(m.device)
+
+
+def code_lengths_by_rank(hist: torch.Tensor):
+    """hist [C, 256] -> (lens, sbr, m): each chunk's Moffat-Katajainen
+    code lengths by rank (before the limit), its symbols by rank
+    (ascending freq << 8 | sym), [C, 256] int64 each, valid for ranks
+    < m, and m [C] its alphabet size."""
+    f = hist.long()
+    present = f > 0
+    m = present.sum(1)
+    syms = torch.arange(256, device=f.device)[None, :]
+    key = torch.where(present, (f << 8) | syms, 2 ** 31 - 1).sort(1).values
+    return _code_lengths(key >> 8, m), key & 0xFF, m
+
+
 def compute_code_tables(hist: torch.Tensor):
     """hist [C, 256] -> (codes [C, 256] int64 packed len<<12 | code,
     sizes [C, 256], maxlen [C], m [C]), all int64; the contract of
-    kanzi_tpu.ops.huffman.compute_code_tables.
+    kanzi_tpu.ops.huffman.compute_code_tables, with the lengths of a
+    chunk past MAX_SYMBOL_SIZE bits limited (limit_code_lengths), so
+    maxlen <= 12 and the tables are the host coder's for every chunk of
+    more than one symbol. (kanzi_tpu's leave such a chunk unlimited, not
+    ok, for its host coder.)
 
-    Valid when m > 1 and maxlen <= 12; other chunks take the host path.
     The canonical codes come from the per-length counting construction,
     which matches the reference's (size, symbol)-sorted walk
     (HuffmanCommon.cpp:29-70)."""
     c, dev = hist.shape[0], hist.device
     f = hist.long()
     present = f > 0
-    m = present.sum(1)
+    lens, sbr, m = code_lengths_by_rank(f)
+    lens, sbr, _ = limit_code_lengths(lens, sbr, m, f)
     syms = torch.arange(256, device=dev)[None, :]
-    key = torch.where(present, (f << 8) | syms, 2 ** 31 - 1).sort(1).values
-    fbr, sbr = key >> 8, key & 0xFF
-    lens = _code_lengths(fbr, m)
     valid_rank = syms < m[:, None]
     maxlen = torch.where(valid_rank, lens, 0).amax(1)
     sizes = torch.zeros((c, 257), dtype=torch.int64, device=dev).scatter_(
@@ -342,26 +441,50 @@ def pack_huff_headers(sizes, m, ok, frag_bits):
 def encode_chunks(chunks: torch.Tensor):
     """Encode full 16 KiB chunks, 4 fragments each. chunks [C, CHUNK]
     uint8 on the coding device. Returns the nine outputs of
-    kanzi_tpu.ops.huffman.encode_chunks_np as tensors: (hdr [C, 512],
-    hdr_bits [C], ok [C], m [C], flat [2 * sum(npairs)] uint8 pair
-    stream, npairs [C, 4], acc [C, 4], nb [C, 4], frag_bits [C, 4])."""
+    kanzi_tpu.ops.huffman.encode_chunks_np as tensors, with no host
+    sync: (hdr [C, 512], hdr_bits [C], ok [C], m [C], flat, npairs
+    [C, 4], acc [C, 4], nb [C, 4], frag_bits [C, 4]); flat is huff_pack's
+    buffer, the pair stream in its first 2 * sum(npairs) bytes."""
     _, sizes, _, m, ok, flat, _, acc, nb, npairs = huff_encode_scan(
         chunks, histogram(chunks))
-    flat = flat[:2 * int(npairs.long().sum())]
     frag_bits = 16 * npairs + nb * ok[:, None]
     hdr, hdr_bits = pack_huff_headers(sizes, m.long(), ok, frag_bits)
     return hdr, hdr_bits, ok, m, flat, npairs, acc, nb, frag_bits
 
 
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """x on the card -> a pinned host tensor, copied without blocking:
+    valid after the stream's next synchronisation."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x, non_blocking=True)
+
+
 def encode_chunks_np(chunks: np.ndarray, device):
     """numpy-facing encode_chunks: chunks [C, CHUNK] uint8 go to
-    ``device``; the outputs come back with kanzi_tpu's dtypes."""
-    t = _host_tensor(chunks, np.uint8).to(device)
-    out = [x.cpu().numpy() for x in encode_chunks(t)]
+    ``device``; the outputs come back with kanzi_tpu's dtypes, flat cut
+    to the pair stream. On a card both ways go through pinned host
+    buffers: the chunks up without blocking, every output but flat down
+    before the one wait that sizes flat from npairs, then flat."""
+    device = torch.device(device)
+    host = _host_tensor(chunks, np.uint8)
+    if device.type != "cuda":
+        out = encode_chunks(host.to(device))
+        n = 2 * int(out[5].long().sum())
+        out = [x.cpu() for x in out[:4] + (out[4][:n],) + out[5:]]
+    else:
+        staged = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
+        staged.copy_(host)
+        out = encode_chunks(staged.to(device, non_blocking=True))
+        small = [_to_host(x) for x in out[:4] + out[5:]]
+        torch.cuda.current_stream(device).synchronize()
+        n = 2 * int(small[4].long().sum())
+        flat = _to_host(out[4][:n])
+        torch.cuda.current_stream(device).synchronize()
+        out = small[:4] + [flat] + small[4:]
     dtypes = (np.uint8, np.int32, bool, np.int32, np.uint8, np.int32,
               np.uint32, np.int32, np.int32)
-    return tuple(a.astype(d, copy=False) if d != np.uint32
-                 else a.view(np.uint32) for a, d in zip(out, dtypes))
+    return tuple(a.numpy().astype(d, copy=False) if d != np.uint32
+                 else a.numpy().view(np.uint32) for a, d in zip(out, dtypes))
 
 
 # ---------------------------------------------------------------------------

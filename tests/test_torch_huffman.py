@@ -15,6 +15,8 @@ keeps conftest.py from importing it):
     KANZI_TEST_TPU=1 python -m pytest -m needs_cuda tests/test_torch_huffman.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ import torch
 import kanzi_tpu.ops as kops
 from kanzi_tpu.bitstream import BitWriter as RefBitWriter
 from kanzi_tpu.entropy.huffman import HuffmanEncoder as RefHuffmanEncoder
+from kanzi_tpu.entropy.huffman import _limit_code_lengths as _ref_limit
 
 import kanzi_tpu_torch.ops as tops
 from kanzi_tpu_torch.bitstream import BitReader, BitWriter
@@ -67,9 +70,34 @@ def _blocks():
     }
 
 
+def _geometric(seed):
+    """A chunk of geometric bytes: a long tail of rare symbols."""
+    rng = np.random.default_rng(seed)
+    return rng.geometric(rng.uniform(0.3, 0.7), CHUNK).astype(np.uint8)
+
+
+# _geometric seeds whose codes run past 12 bits (17, 13, 14 and 15 bits);
+# the bit-debt repayment limits them
+OVER_SEEDS = (2, 3, 6, 8)
+# the _geometric seeds whose debt is left after both repayment passes
+# (the limit's slow path: renormalised to 2048, lengths rebuilt), found
+# by a search of seeds 0-599 on the CPU with the repayment of
+# kanzi_tpu.entropy.huffman._limit_code_lengths (90, 263, 348); the
+# rebuilt lengths of 90 still run past 12 bits, so it takes 8-bit codes
+SLOW_SEEDS = (90, 348)
+
+
+def _over_length_chunks():
+    """The chunks whose Moffat-Katajainen codes run past 12 bits: the
+    "fib" chunk, seeded skewed chunks and the slow-path chunk."""
+    return {"fib": _blocks()["fib"][:CHUNK],
+            **{f"geometric-{s}": _geometric(s) for s in OVER_SEEDS},
+            **{f"slow-{s}": _geometric(s) for s in SLOW_SEEDS}}
+
+
 def _chunk_corpus():
     """8 chunks, one JAX shape bucket: five of "mixed" (random, text,
-    a 3-symbol alphabet, zeros), one "skewed", the "fib" chunk whose
+    a 3-symbol alphabet, zeros), one "skewed" and the "fib" chunk, whose
     codes run past 12 bits, and a single-symbol chunk."""
     b = _blocks()
     return np.stack([b["mixed"][i * CHUNK:(i + 1) * CHUNK] for i in range(5)]
@@ -104,11 +132,68 @@ def _fragments(enc):
     return frags
 
 
+@contextlib.contextmanager
+def _host_only():
+    """kanzi_tpu's host path (its ops disabled) for the duration."""
+    kops.disable()
+    try:
+        yield
+    finally:
+        kops.enable()
+
+
+def _host_coder_bits(chunk):
+    """The bits kanzi_tpu's host HuffmanEncoder writes for one chunk
+    (header, fragment bit counts, fragments), and its bit count."""
+    ref = RefBitWriter()
+    with _host_only():
+        RefHuffmanEncoder(ref).encode(chunk)
+    return ref.getvalue(), ref.written()
+
+
+def _chunk_bits(enc, ci):
+    """Chunk ci's bits from the nine encode outputs: its header, then
+    each fragment's pairs and residual bits; and the bit count."""
+    hdr, hdr_bits, ok, _, flat, npairs, acc, nb, _ = enc
+    assert ok[ci]
+    base = int(npairs[:ci].sum())
+    w = BitWriter()
+    w._append_bit_run(hdr[ci, :(int(hdr_bits[ci]) + 7) >> 3].tobytes(),
+                      int(hdr_bits[ci]))
+    for f in range(4):
+        k = int(npairs[ci, f])
+        w.write_bytes(flat[2 * base:2 * (base + k)].tobytes())
+        base += k
+        if nb[ci, f]:
+            w.write_bits(int(acc[ci, f]) & ((1 << int(nb[ci, f])) - 1),
+                         int(nb[ci, f]))
+    return w.getvalue(), w.written()
+
+
+def _pair_rows(flat, npairs, rows):
+    """The pair bytes of each chunk of rows, from a flat pair stream."""
+    off = 2 * (np.cumsum(npairs.sum(1)) - npairs.sum(1))
+    return [flat[off[ci]:off[ci] + 2 * int(npairs[ci].sum())].tobytes()
+            for ci in rows]
+
+
+def _kept_and_over(ref_ok, m):
+    """The rows kanzi_tpu's device function codes itself or that have
+    one symbol (the port's outputs equal its there), and the rows whose
+    codes run past 12 bits, which it leaves to its host coder (the
+    port limits them on the kernels, so there its bits equal the host
+    coder's)."""
+    over = ~ref_ok & (m > 1)
+    return np.nonzero(~over)[0], np.nonzero(over)[0]
+
+
 def test_code_tables_match_jax(jh):
-    """(codes, sizes, maxlen, m) == kanzi_tpu.ops.huffman's, including
-    the chunks the host codes (maxlen > 12, m == 1), both from
-    compute_code_tables and as the first outputs of kernel D's plain
-    version (int32, with ok = m > 1 and maxlen <= 12)."""
+    """(codes, sizes, maxlen, m) == kanzi_tpu.ops.huffman's on every
+    chunk it codes or that has one symbol, both from compute_code_tables
+    and as the first outputs of kernel D's plain version (int32, with ok
+    = m > 1). On the "skewed" and "fib" chunks, whose codes run past 12
+    bits, the codes and lengths == those kanzi_tpu's host coder limits
+    them to, and maxlen is the limited 12."""
     import jax.numpy as jnp
     chunks = _chunk_corpus()
     hist = _hist(chunks)
@@ -117,29 +202,48 @@ def test_code_tables_match_jax(jh):
     got = th.compute_code_tables(torch.from_numpy(hist))
     scan = th.huff_encode_scan(torch.from_numpy(chunks),
                                torch.from_numpy(hist).long())
+    maxlen, m = ref[2:]
+    kept, over = _kept_and_over(maxlen <= th.MAX_SYMBOL_SIZE, m)
+    assert list(over) == [5, 6] and (m == 1).any()
     for name, g, d, r in zip(("codes", "sizes", "maxlen", "m"), got, scan,
                              ref):
-        assert np.array_equal(g.numpy(), r), name
-        assert d.dtype == torch.int32 and np.array_equal(d.numpy(), r), name
-    maxlen, m = ref[2:]
-    assert (maxlen > th.MAX_SYMBOL_SIZE).any() and (m == 1).any()
-    assert np.array_equal(scan[4].numpy(),
-                          (m > 1) & (maxlen <= th.MAX_SYMBOL_SIZE))
+        assert np.array_equal(g.numpy()[kept], r[kept]), name
+        assert d.dtype == torch.int32 and torch.equal(d, g.int()), name
+    assert np.array_equal(scan[4].numpy(), m > 1)
+    for ci in over:
+        enc = RefHuffmanEncoder(RefBitWriter())
+        enc._update_frequencies(hist[ci].astype(np.int64))
+        assert np.array_equal(got[0][ci].numpy(), enc.codes)
+        assert np.array_equal(got[1][ci].numpy(), enc.codes >> 12)
+        assert int(got[2][ci]) == th.MAX_SYMBOL_SIZE < maxlen[ci]
 
 
 def test_encode_matches_jax(jh):
     """All nine outputs == kanzi_tpu.ops.huffman.encode_chunks_np, in
-    shape, dtype and value."""
+    dtype and value, on every chunk it codes or that has one symbol (the
+    row outputs, and each chunk's pairs in flat); the "skewed" and "fib"
+    chunks, which it leaves to its host coder, are coded here too, and
+    their bits (header, pairs, residual bits) == kanzi_tpu's host
+    coder's."""
     chunks = _chunk_corpus()
     tops.reset_counters()
     got = th.encode_chunks_np(chunks, CPU)
-    ref = jh.encode_chunks_np(chunks)
+    ref = [np.asarray(r) for r in jh.encode_chunks_np(chunks)]
+    kept, over = _kept_and_over(ref[2], ref[3])
+    assert list(over) == [5, 6]
     names = ("hdr", "hdr_bits", "ok", "m", "flat", "npairs", "acc", "nb",
              "frag_bits")
     for name, g, r in zip(names, got, ref):
-        r = np.asarray(r)
-        assert g.shape == r.shape and g.dtype == r.dtype, name
-        assert np.array_equal(g, r), name
+        assert g.dtype == r.dtype and g.shape[1:] == r.shape[1:], name
+        if name != "flat":
+            assert len(g) == len(r) and np.array_equal(g[kept], r[kept]), \
+                name
+    assert _pair_rows(got[4], got[5], kept) == _pair_rows(ref[4], ref[5],
+                                                          kept)
+    assert len(got[4]) == 2 * got[5].sum()
+    assert np.array_equal(got[2], ref[3] > 1)
+    for ci in over:
+        assert _chunk_bits(got, ci) == _host_coder_bits(chunks[ci])
     # the pack writes the pair stream itself: no compaction (kernel B)
     assert tops.COUNTERS == {"huff_code_tables_plain": 1,
                              "huff_pack_plain": 1}
@@ -151,25 +255,94 @@ def _pairs(scan):
 
 
 def test_encode_scan_pairs_match_jax(jh):
-    """Kernel D's plain version on the corpus (a not-ok chunk whose codes
-    run past 12 bits, a one-symbol chunk): its pair stream, offsets, acc,
-    nb and npairs == kanzi_tpu.ops.huffman.encode_chunks_np's flat,
-    npairs cumsum, acc, nb and npairs; the rest of flat is zero."""
+    """Kernel D's plain version on the corpus (the "skewed" and "fib"
+    chunks whose codes run past 12 bits, a one-symbol chunk): the pairs
+    of each chunk
+    that kanzi_tpu.ops.huffman.encode_chunks_np codes, and their acc, nb
+    and npairs, == its; the offsets are the cumsum of npairs; the rest
+    of flat is zero; the over-length chunks' bits (the header from the
+    scan's tables, the pairs and residual bits) == kanzi_tpu's host
+    coder's."""
     chunks = _chunk_corpus()
     ref = jh.encode_chunks_np(chunks)
     _, _, ok, m, r_flat, r_np, r_acc, r_nb, _ = (np.asarray(x) for x in ref)
-    assert not ok.all() and (m == 1).any()
+    kept, over = _kept_and_over(ok, m)
+    assert list(over) == [5, 6] and (m == 1).any()
     scan = th.huff_encode_scan(torch.from_numpy(chunks),
                                th.histogram(torch.from_numpy(chunks)))
-    flat, off16, acc, nb, npairs = scan[5:]
+    _, sizes, _, s_m, s_ok, flat, off16, acc, nb, npairs = scan
     assert flat.shape == (len(chunks) * 4 * th.FRAG_MAX_BYTES,)
-    assert np.array_equal(_pairs(scan).numpy(), r_flat)
-    assert not flat[len(r_flat):].any()
-    np16 = r_np.reshape(-1).astype(np.int64)
+    pairs = _pairs(scan).numpy()
+    assert not flat[len(pairs):].any()
+    np16 = npairs.numpy().reshape(-1).astype(np.int64)
     assert np.array_equal(off16.numpy().reshape(-1), np.cumsum(np16) - np16)
-    assert np.array_equal(acc.numpy().view(np.uint32), r_acc)
-    assert np.array_equal(nb.numpy(), r_nb)
-    assert np.array_equal(npairs.numpy(), r_np)
+    assert (_pair_rows(pairs, npairs.numpy(), kept)
+            == _pair_rows(r_flat, r_np, kept))
+    assert np.array_equal(acc.numpy().view(np.uint32)[kept], r_acc[kept])
+    assert np.array_equal(nb.numpy()[kept], r_nb[kept])
+    assert np.array_equal(npairs.numpy()[kept], r_np[kept])
+    frag_bits = 16 * npairs + nb * s_ok[:, None]
+    hdr, hdr_bits = th.pack_huff_headers(sizes, s_m.long(), s_ok, frag_bits)
+    enc = (hdr.numpy(), hdr_bits.numpy(), s_ok.numpy(), None, pairs,
+           npairs.numpy(), acc.numpy().view(np.uint32), nb.numpy(), None)
+    for ci in over:
+        assert _chunk_bits(enc, ci) == _host_coder_bits(chunks[ci])
+
+
+@pytest.mark.parametrize("name", list(_over_length_chunks()))
+def test_length_limit_matches_kanzi_tpu(name):
+    """limit_code_lengths on a chunk whose code runs past 12 bits ==
+    kanzi_tpu.entropy.huffman._limit_code_lengths: the lengths by symbol
+    (8 bits each where it returns a maxlen past 12, as its encoder
+    does), and the slow path taken on the chunks whose debt is left."""
+    chunk = _over_length_chunks()[name]
+    h = torch.from_numpy(np.bincount(chunk, minlength=256))[None]
+    lens, ranks, m = th.code_lengths_by_rank(h)
+    assert int(lens[0, 0]) > th.MAX_SYMBOL_SIZE
+    got, sbr, slow = th.limit_code_lengths(lens, ranks, m, h)
+    n = int(m[0])
+    sizes = np.zeros(256, np.int64)
+    sizes[sbr[0, :n].numpy()] = got[0, :n].numpy()
+
+    freqs = h[0].numpy().astype(np.int64)
+    alphabet = np.nonzero(freqs)[0]
+    ranks = ranks[0, :n].numpy()
+    ref_sizes = np.zeros(256, np.int64)
+    ref_sizes[ranks] = lens[0, :n].numpy()
+    maxlen, ref_sizes = _ref_limit(alphabet, freqs, ref_sizes, ranks, n)
+    if maxlen > th.MAX_SYMBOL_SIZE:
+        assert name == "slow-90"
+        ref_sizes = np.where(freqs > 0, 8, 0)
+    assert np.array_equal(sizes, ref_sizes)
+    assert bool(slow[0]) == name.startswith("slow")
+
+
+@pytest.mark.parametrize("name", list(_over_length_chunks()))
+def test_over_length_chunk_matches_host_coder(name):
+    """A chunk whose code runs past 12 bits is coded by kernel D's plain
+    version (ok), and its bits == kanzi_tpu's host coder's."""
+    chunk = _over_length_chunks()[name]
+    enc = th.encode_chunks_np(chunk[None], CPU)
+    assert enc[2][0]
+    assert _chunk_bits(enc, 0) == _host_coder_bits(chunk)
+
+
+def test_none_huffman_codes_every_chunk_on_the_kernels():
+    """-t NONE -e HUFFMAN over the over-length chunks and the corpus, on
+    the CPU: one batched encode codes every full chunk, none goes to the
+    host coder (huff_host_chunks), and the bytes == kanzi_tpu's."""
+    import kanzi_tpu
+    import kanzi_tpu_torch
+    data = np.concatenate([*_over_length_chunks().values(),
+                           *_chunk_corpus()]).tobytes() + b"tail" * 99
+    tops.reset_counters()
+    ours = kanzi_tpu_torch.compress_bytes(data, "NONE", "HUFFMAN",
+                                          block_size=64 * 1024, device="cpu")
+    assert tops.COUNTERS.get("huff_code_tables_plain") == 1
+    assert "huff_host_chunks" not in tops.COUNTERS
+    assert ours == kanzi_tpu.compress_bytes(data, "NONE", "HUFFMAN",
+                                            block_size=64 * 1024)
+    assert kanzi_tpu_torch.decompress_bytes(ours, device="cpu") == data
 
 
 def test_decode_matches_jax_and_roundtrips(jh):
@@ -178,9 +351,15 @@ def test_decode_matches_jax_and_roundtrips(jh):
     import jax.numpy as jnp
     chunks = _chunk_corpus()
     enc = th.encode_chunks_np(chunks, CPU)
-    # the JAX package's code tables, handed to the port as tensors
-    codes, sizes = tans.from_numpy(
-        jh.compute_code_tables(jnp.asarray(_hist(chunks)))[:2], CPU)
+    # the JAX package's code tables, handed to the port as tensors; for
+    # the chunks whose codes it leaves unlimited (maxlen > 12), the
+    # port's limited ones, which are the host coder's
+    ref_tables = jh.compute_code_tables(jnp.asarray(_hist(chunks)))
+    codes, sizes = tans.from_numpy(ref_tables[:2], CPU)
+    over = np.asarray(ref_tables[2]) > th.MAX_SYMBOL_SIZE
+    port = th.compute_code_tables(torch.from_numpy(_hist(chunks)))
+    codes[over] = port[0][over].to(codes.dtype)
+    sizes[over] = port[1][over].to(sizes.dtype)
     sel = np.nonzero(enc[2])[0]
     frags = _fragments(enc)
     nbytes = np.array([[len(frags[ci][f]) for f in range(4)] for ci in sel])
@@ -341,12 +520,16 @@ def cuda_device():
 def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
     """Kernels D (the code-table prologue and the pack: pair stream,
     offsets, acc, nb, npairs) and E against their plain versions on the
-    card: the corpus above plus random and skewed chunks."""
+    card: the corpus above, the chunks past 12 bits (the slow path's
+    too, from 64 chunks) and random and skewed chunks; every chunk of
+    more than one symbol is ok."""
     rng = np.random.default_rng(n_chunks)
     host = rng.integers(0, 256, (n_chunks, CHUNK)).astype(np.uint8)
     host[n_chunks // 2:] = rng.geometric(0.05, (n_chunks - n_chunks // 2,
                                                CHUNK)).astype(np.uint8)
-    host[:8] = _chunk_corpus()
+    special = np.concatenate([_chunk_corpus(),
+                              np.stack(list(_over_length_chunks().values()))])
+    host[:len(special)] = special[:n_chunks]
     chunks = torch.from_numpy(host).to(cuda_device)
     hist = th.histogram(chunks)
     got = th.huff_encode_scan(chunks, hist)
@@ -359,6 +542,7 @@ def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
     for g, r in zip(got[:5] + got[6:], ref[:5] + ref[6:]):
         assert torch.equal(g, r)
     assert torch.equal(_pairs(got), _pairs(ref))
+    assert torch.equal(got[4], got[3] > 1)
     codes, sizes = ref[:2]
     enc = th.encode_chunks_np(host, cuda_device)
     sel = np.nonzero(enc[2])[0]
