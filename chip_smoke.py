@@ -83,10 +83,12 @@ the plain version's, its bound and the library call's; the last line is
 non-zero before printing either. Scratch files go to build/chip_smoke/.
 (``chip_smoke.py --plain FILE`` is the worker mode of phase 4.
 ``chip_smoke.py --kernels`` runs phases 1-3 and phase 4's kernels A-E
-only, prints their lines and no JSON: a short check of those kernels
-while one of them is redesigned. ``chip_smoke.py --containers`` runs
-phases 1-3 and 5 only, no plain workers beside them, and no JSON: the
-container rates of two trees compared in one call.)
+and G only (G against its plain version on the card at SMALL_FPAQ and
+timed at 16 x 4 MiB against the native coder, with the crossover; no
+plain workers), prints their lines and no JSON: a short check of those
+kernels while one of them is redesigned. ``chip_smoke.py --containers``
+runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
+the container rates of two trees compared in one call.)
 """
 
 import cProfile
@@ -708,7 +710,7 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
     container's call) must equal the native host coder's, which is timed
     per stream: the crossover of the container's FPAQ gate is G's time
     over that. Its outputs on g_in go to full_got for the plain
-    worker's check."""
+    worker's check (none with --kernels, which starts no worker)."""
     from kanzi_tpu_torch.entropy.native_bin import KIND_FPAQ, _new_handle
     from kanzi_tpu_torch.io.compressed_stream import FPAQ_MIN_STREAMS
     n, size, chunk = SMALL_FPAQ
@@ -720,9 +722,10 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
     ref, plain_ms = once_ms(
         lambda: dfp.fpaq_encode_plain(small, lens, chunk // dfp.WIN_B, cap))
     err = max(max_abs_err(g, r) for g, r in zip(got, ref))
-    full_got["fpaq_encode"] = [t.cpu() for t in dfp.fpaq_encode(
-        g_in["streams"].to(dev), g_in["lens"].to(dev), g_in["chunk_win"],
-        g_in["cap"])]
+    if g_in is not None:
+        full_got["fpaq_encode"] = [t.cpu() for t in dfp.fpaq_encode(
+            g_in["streams"].to(dev), g_in["lens"].to(dev),
+            g_in["chunk_win"], g_in["cap"])]
 
     host = np.frombuffer(corpus, np.uint8).reshape(-1, dfp.CHUNK_B)
     streams = torch.from_numpy(host.copy()).to(dev)
@@ -731,7 +734,14 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
     cw = dfp.CHUNK_B // dfp.WIN_B
     cap = dfp.CHUNK_B // dfp.WIN_B * dfp.REGION_W
     ms = median_ms(lambda: dfp.fpaq_encode(streams, lens, cw, cap), 3)
+    # the SM clock while the kernel runs: its cycles a bit step
     _, win_cnt, win_low = dfp.fpaq_encode(streams, lens, cw, cap)
+    time.sleep(ms / 4000)
+    mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    torch.cuda.synchronize()
     bufs, lows, _, _ = dfp.fpaq_encode_batch(
         host, np.full(len(host), dfp.CHUNK_B), dfp.CHUNK_B, dev)
     total = win_cnt.long().sum(1).cpu().numpy()
@@ -749,7 +759,9 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
     host_ms = 1000 * host_s / len(host)
     log(f"kernel fpaq_encode: {len(host)} streams of 4 MiB, {steps} bit "
         f"steps each: kernel_ms {ms}, {1e6 * ms / steps:.2f} ns per "
-        f"dependent step; plain_ms {plain_ms} at {n} streams of "
+        f"dependent step ({ms * mhz / steps * 1e3:.1f} cycles at the "
+        f"{mhz} MHz SM clock read during a launch); plain_ms {plain_ms} "
+        f"at {n} streams of "
         f"{size >> 10} KiB (once); bytes and lows == the native coder's; "
         f"native coder {host_ms:.3f} ms a stream on the host, crossover "
         f"{ms / host_ms:.2f} streams (the container's gate: "
@@ -978,8 +990,8 @@ def main(mode: str) -> None:
 
 
 def run(workers: dict, mode: str) -> None:
-    """Phases 1-9 (mode "full"); 1-4 for A-E only ("kernels"); 1-3
-    and 5 ("containers")."""
+    """Phases 1-9 (mode "full"); 1-4 for A-E and G only ("kernels");
+    1-3 and 5 ("containers")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -1031,6 +1043,8 @@ def run(workers: dict, mode: str) -> None:
         kres.update(check_huffman_kernels(chunks, dhuff))
         del chunks
         if mode == "kernels":
+            kres.update(check_fpaq_kernel(corpus, dfp, native, dev, None,
+                                          full_got))
             report_kernels(kres)
             return
         kres.update(check_ans1_kernel(corpus, dans1, native, dev,

@@ -296,10 +296,11 @@ FPAQ_CHUNK = 4 * 1024 * 1024
 # by length (their total over the longest), are at least this many: the
 # kernel's time is set by its longest stream (one chain a stream), the
 # host coder's by their total. Set at the top of the crossovers that
-# chip_smoke.py measured on an H100 (PERF.md; the kernel per launch over
-# the native coder per stream at the same length, which moves with the
-# host's speed), so that a batch sent to the card is not slower there.
-FPAQ_MIN_STREAMS = 12
+# chip_smoke.py printed on an H100 for the kernel of csrc/fpaq.cu (PERF.md;
+# the kernel per launch over the native coder per stream at the same
+# length, which moves with the host's speed: 5.18-7.01 streams), rounded
+# up, so that a batch sent to the card is not slower there.
+FPAQ_MIN_STREAMS = 8
 
 
 def _fpaq_on_device(dev, lens) -> bool:

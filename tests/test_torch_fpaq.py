@@ -110,6 +110,36 @@ def test_encode_batch_matches_jax_model(jf):
                                                  chunk_bytes=CH))
 
 
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 511, 512, 513, "reset"])
+def test_plain_matches_jax_model(jf, n):
+    """fpaq_encode_plain == kanzi_tpu.ops.fpaq._encode_batch_np on a
+    text-like and a random stream of n bytes, at the window's edges; and
+    ("reset") at 1536 bytes with 1 KiB chunks, a bank reset on the
+    window boundary at 1024 whose byte before is >= 64."""
+    chunk = CH
+    if n == "reset":
+        n, chunk = 3 * tf.WIN_B, 2 * tf.WIN_B
+    lens = np.array([n, n])
+    rows = _streams(9, [max(n, 1)] * 2)[:, :n]
+    if n > chunk:
+        rows[:, chunk - 1] = 200
+    lp = -(-max(n, 1) // tf.WIN_B) * tf.WIN_B
+    streams = np.zeros((2, lp), np.uint8)
+    streams[:, :n] = rows
+    cap = lp // tf.WIN_B * tf.REGION_W
+    words, win_cnt, win_low = tf.fpaq_encode_plain(
+        torch.from_numpy(streams), torch.from_numpy(lens), chunk // tf.WIN_B,
+        cap)
+    bufs, low56, _, win_words, ref_low = jf._encode_batch_np(
+        rows, lens, chunk_bytes=chunk)
+    assert np.array_equal(win_cnt.numpy(), win_words)
+    assert np.array_equal(win_low.numpy(), ref_low.astype(np.int64))
+    assert [int(x) for x in win_low[:, -1]] == low56
+    for i in range(2):
+        got = words[i, :int(win_cnt[i].sum())].numpy().view(np.uint32)
+        assert got.astype(">u4").tobytes() == bufs[i]
+
+
 def test_fpaq_batch_byte_identical(fpaq_device):
     """Three 4 KiB blocks of mixed content in one plain launch: the
     container == the port's host path and kanzi_tpu's device batch
@@ -226,20 +256,59 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _kernel_case(name):
+    """(streams [S, L] u8, lens [S], chunk_win, cap) of one case of
+    test_kernel_matches_plain_on_cuda."""
+    rng = np.random.default_rng(2)
+    if name in ("ragged", "cap3"):
+        # 40 streams of up to 2 KiB (two warps' worth, one empty) with
+        # 1 KiB chunks
+        lens = rng.integers(0, 2049, 40)
+        lens[:3] = [2048, 0, 1]
+        streams = _streams(4, lens.tolist())
+        cap = 3 if name == "cap3" else (
+            streams.shape[1] // tf.WIN_B * tf.REGION_W)
+        return streams, lens, 2, cap
+    if name == "wrap":
+        # 66 windows, so the double buffer wraps 33 times; a bank reset
+        # every 4 windows, each on a byte >= 64
+        lens = np.array([66 * tf.WIN_B, 65 * tf.WIN_B + 300,
+                         64 * tf.WIN_B, 40 * tf.WIN_B + 1])
+        streams = _streams(6, lens.tolist())
+        streams[0, 4 * tf.WIN_B - 1::4 * tf.WIN_B] = 200
+        return streams, lens, 4, 66 * tf.REGION_W
+    if name == "ns64":
+        # one container batch: NS streams, ragged
+        lens = rng.integers(1, 1537, tf.NS)
+        streams = _streams(8, lens.tolist())
+        return streams, lens, 2, 3 * tf.REGION_W
+    n = 4 * tf.WIN_B
+    row = {"zeros": np.zeros(n, np.uint8),
+           "random": rng.integers(0, 256, n, dtype=np.uint8),
+           "one_symbol": np.full(n, 0xA7, np.uint8)}[name]
+    return row[None], np.array([n]), 2, 4 * tf.REGION_W
+
+
 @pytest.mark.needs_cuda
-def test_kernel_matches_plain_on_cuda(cuda_device):
-    """Kernel G against its plain version on the card: 40 streams of up
-    to 2 KiB (two blocks of 32, ragged lengths, one empty) with 1 KiB
-    chunks, with the first launch's region and with one of 3 words (the
-    words past it dropped, all of them counted)."""
-    lens = np.random.default_rng(2).integers(0, 2049, 40)
-    lens[:3] = [2048, 0, 1]
-    streams = torch.from_numpy(_streams(4, lens.tolist()))
-    args = (streams.to(cuda_device),
-            torch.from_numpy(lens).to(cuda_device), 2)
-    for cap in (streams.shape[1] // tf.WIN_B * tf.REGION_W, 3):
-        got = tf.fpaq_encode(*args, cap)
-        ref = tf.fpaq_encode_plain(*args, cap)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            assert torch.equal(g, r)
+@pytest.mark.parametrize("case", ["ragged", "cap3", "wrap", "ns64",
+                                  "zeros", "random", "one_symbol"])
+def test_kernel_matches_plain_on_cuda(cuda_device, case):
+    """Kernel G on the card against its plain version on the host's CPU
+    (the same function; a call of small ops is faster there): ragged
+    streams with the first launch's region and with a region of 3 words
+    (the words past it dropped, all of them counted); 66 windows with a
+    bank reset every 4 (the producer's double buffer wrapped); 64
+    streams, one container batch; an all-zero, a random and a one-symbol
+    stream."""
+    rows, lens, chunk_win, cap = _kernel_case(case)
+    streams = np.zeros((len(rows), -(-rows.shape[1] // tf.WIN_B) * tf.WIN_B),
+                       np.uint8)
+    streams[:, :rows.shape[1]] = rows
+    streams = torch.from_numpy(streams)
+    lens = torch.from_numpy(lens.astype(np.int64))
+    got = tf.fpaq_encode(streams.to(cuda_device), lens.to(cuda_device),
+                         chunk_win, cap)
+    ref = tf.fpaq_encode_plain(streams, lens, chunk_win, cap)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
