@@ -37,11 +37,17 @@ Phases (each raises on failure, so any failure exits non-zero):
    their output is held against the port's native host coders
    (native.ans1_enc_block, the native FPAQ coder, which is timed too:
    the crossover stream count of the container's FPAQ gate). The SBRT
-   kernel the same way: against its plain version on the card at 16
-   blocks of 16 KiB in all three modes, both ways; in a third worker at
+   kernels (the forward's sbrt_occ and sbrt_entry, whose entry states
+   are held against segment_states_plain, and sbrt_fwd; the inverse's
+   sbrt_inv) the same way: against their plain versions on the card at
+   16 blocks of 16 KiB with ragged lengths and the forward cut into 1
+   KiB segments, in all three modes, both ways; in a third worker at
    the level-5 chain's RANK input (the corpus's 16 blocks of 4 MiB
    through the device BWT and its header) cut to 256 KiB a block, RANK
-   both ways; and timed at that whole input against native.sbrt;
+   both ways; and timed at that whole input, each kernel apart, the
+   forward whole and the inverse (ns per step of a segment's chain and
+   of the inverse's, the share of ranks below 8 and 32), against
+   native.sbrt;
 5. the four container paths, each with the launch counters reset just
    before and read just after: the corpus through kanzi_tpu_torch's
    container with -e ANS0, -e HUFFMAN, -e ANS1 and -e FPAQ (-t NONE,
@@ -68,7 +74,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    blocks, the counters reset before and read after each; require the
    container byte-identical with the host writer's (the same chain with
    kanzi_tpu_torch.ops disabled), both decodes to return the input, the
-   SBRT kernel launched both ways, A, B and C launched and at least one
+   SBRT kernels launched both ways (sbrt_occ, sbrt_entry and sbrt_fwd
+   on encode, sbrt_inv on decode), A, B and C launched and at least one
    block through the device chain; the device BWT of one block held
    against native.bwt_forward; both rates beside the host path's, and
    one torch.profiler / cProfile breakdown of each direction; then the
@@ -82,11 +89,12 @@ the plain version's, its bound and the library call's; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits
 non-zero before printing either. Scratch files go to build/chip_smoke/.
 (``chip_smoke.py --plain FILE`` is the worker mode of phase 4.
-``chip_smoke.py --kernels`` runs phases 1-3 and phase 4's kernels A-E
-and G only (G against its plain version on the card at SMALL_FPAQ and
-timed at 16 x 4 MiB against the native coder, with the crossover; no
-plain workers), prints their lines and no JSON: a short check of those
-kernels while one of them is redesigned. ``chip_smoke.py --containers``
+``chip_smoke.py --kernels`` runs phases 1-3 and phase 4's kernels A-E,
+G and SBRT only (G against its plain version on the card at SMALL_FPAQ
+and timed at 16 x 4 MiB against the native coder, with the crossover;
+SBRT's small checks and its timed RANK input; no plain workers), prints
+their lines and no JSON: a short check of those kernels while one of
+them is redesigned. ``chip_smoke.py --containers``
 runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
 the container rates of two trees compared in one call.)
 """
@@ -94,6 +102,7 @@ the container rates of two trees compared in one call.)
 import cProfile
 import json
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -157,14 +166,20 @@ REPLACES = {
     "ans1_gather": ("ans1.cu", "kanzi_tpu/ops/ans1.py:142"),
     "ans1_chain": ("ans1.cu", "kanzi_tpu/ops/ans1.py:221"),
     "fpaq_encode": ("fpaq.cu", "kanzi_tpu/ops/fpaq.py:286"),
-    "sbrt": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
+    # SBRT: the forward's three kernels (entry states, then segments)
+    # and the inverse
+    "sbrt_occ": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
+    "sbrt_entry": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
+    "sbrt_fwd": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
+    "sbrt_inv": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
 }
 SMALL_ANS1 = (16, 64 << 10)         # F1, F2 against their plain versions
 SMALL_FPAQ = (64, 8 << 10, 2048)    # G: streams, bytes, FPAQ chunk bytes
 HOST_FPAQ_BYTES = 256 << 10         # G's plain run on the CPU: each of the
                                     # 16 main-path streams' first bytes
-SMALL_SBRT = 16 << 10               # SBRT against its plain version on the
-                                    # card: 16 blocks of this many bytes
+SMALL_SBRT = 16 << 10               # SBRT against its plain versions on the
+                                    # card: 16 blocks of this many bytes,
+SMALL_SEGMENT = 1 << 10             # the forward cut into segments of this
 HOST_SBRT_BYTES = 256 << 10         # and on the CPU: each RANK input's
                                     # first bytes
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
@@ -599,7 +614,8 @@ def start_plain_workers(corpus, dans1, dfp, native, rank_in) -> dict:
 
 # the kernels that each worker's plain version checks
 WORKER_KERNELS = {"ans1_encode_scan": ("ans1_gather", "ans1_chain"),
-                  "fpaq_encode": ("fpaq_encode",), "sbrt": ("sbrt",)}
+                  "fpaq_encode": ("fpaq_encode",),
+                  "sbrt": ("sbrt_occ", "sbrt_entry", "sbrt_fwd", "sbrt_inv")}
 
 
 def finish_plain_workers(workers, full_got, kres) -> None:
@@ -737,10 +753,7 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
     # the SM clock while the kernel runs: its cycles a bit step
     _, win_cnt, win_low = dfp.fpaq_encode(streams, lens, cw, cap)
     time.sleep(ms / 4000)
-    mhz = int(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
+    mhz = sm_clock_mhz()
     torch.cuda.synchronize()
     bufs, lows, _, _ = dfp.fpaq_encode_batch(
         host, np.full(len(host), dfp.CHUNK_B), dfp.CHUNK_B, dev)
@@ -824,39 +837,110 @@ def sbrt_visits(x, ranks, m1: int, m2: int, shift: int) -> int:
     return int(walked.sum() + (new_r > 0).sum())
 
 
-def check_sbrt_kernel(rank_in, dsb, native, s_in, full_got) -> dict:
-    """SBRT against its plain version on the card at 16 x SMALL_SBRT (the
-    RANK inputs' first bytes) in all three modes, both ways; then timed
-    at the whole RANK input both ways, held against native.sbrt (timed
-    too, block by block on the host). Its outputs on s_in go to full_got
-    for the plain worker's check."""
+def sm_clock_mhz() -> int:
+    """The SM clock nvidia-smi reads now (call it while a kernel runs)."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def sass_step(lib: Path, kernel: str, anchor: str) -> tuple:
+    """(instructions, static stall cycles) of one step of `kernel` in the
+    built library, read from cuobjdump -sass: each instruction's second
+    64-bit word carries ptxas's stall count in bits 41-44. A step runs
+    from one `anchor` instruction (one a step) to the next; the median
+    over the unrolled loop's steps. The waits on variable-latency
+    results (shuffles, shared-memory loads) are not in the count."""
+    from kanzi_tpu_torch.ops import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    lines = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    ins, inside = [], False
+    for k, line in enumerate(lines):
+        if "Function :" in line:
+            inside = kernel in line
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(\S+).*/\* 0x[0-9a-f]+ \*/",
+                     line)
+        if inside and m:
+            hi = int(re.search(r"0x[0-9a-f]+", lines[k + 1]).group(), 16)
+            ins.append((m.group(1), (hi >> 41) & 0xF))
+    at = [k for k, (op, _) in enumerate(ins) if op.startswith(anchor)]
+    if len(at) < 2:
+        fail(f"sass_step: no two {anchor} in {kernel}")
+    steps = [(b - a, sum(st for _, st in ins[a:b]))
+             for a, b in zip(at, at[1:])]
+    return (statistics.median(n for n, _ in steps),
+            statistics.median(st for _, st in steps))
+
+
+def check_sbrt_kernels(rank_in, dsb, native, s_in, full_got) -> dict:
+    """The SBRT kernels against their plain versions on the card at 16 x
+    SMALL_SBRT (the RANK inputs' first bytes, ragged lengths, the
+    forward cut into SMALL_SEGMENT segments) in all three modes, both
+    ways, and the state kernels against segment_states_plain; then each
+    kernel timed apart at the whole RANK input, the forward whole and
+    the inverse, held against
+    native.sbrt (timed too, block by block on the host). Its outputs on
+    s_in go to full_got for the plain worker's check (none with
+    --kernels, which starts no worker)."""
     dev = rank_in.device
     small = rank_in[:, :SMALL_SBRT].contiguous()
-    lens = torch.full((len(small),), SMALL_SBRT, dtype=torch.int64,
-                      device=dev)
-    err, plain_ms = 0, None
+    lens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, SMALL_SBRT + 1, len(small))).to(dev)
+    lens[:3] = torch.tensor([SMALL_SBRT, 0, 4 * SMALL_SEGMENT])
+    err = dict.fromkeys(("sbrt_occ", "sbrt_entry", "sbrt_fwd", "sbrt_inv"),
+                        0)
+    plain_ms = {}
     for mode in (1, 2, 3):
+        got = dsb.segment_states(small, lens, mode, SMALL_SEGMENT)
+        ref, ms = once_ms(lambda: dsb.segment_states_plain(
+            small, lens, mode, SMALL_SEGMENT))
+        e = max(max_abs_err(g.long(), r.long()) for g, r in zip(got, ref))
+        err["sbrt_occ"] = err["sbrt_entry"] = max(err["sbrt_occ"], e)
+        if mode == dsb.MODE_RANK:
+            plain_ms["sbrt_occ"] = plain_ms["sbrt_entry"] = ms
         for inverse in (False, True):
-            src = small if not inverse else dsb.sbrt(small, lens, mode, False)
-            got = dsb.sbrt(src, lens, mode, inverse)
+            name = "sbrt_inv" if inverse else "sbrt_fwd"
+            src = small if not inverse else dsb.sbrt_plain(small, lens, mode,
+                                                           False)
+            got = dsb.sbrt(src, lens, mode, inverse, segment=SMALL_SEGMENT)
             ref, ms = once_ms(lambda: dsb.sbrt_plain(src, lens, mode,
                                                      inverse))
-            err = max(err, max_abs_err(got, ref))
-            if mode == dsb.MODE_RANK and not inverse:
-                plain_ms = ms
-    x = s_in["blocks"].to(dev)
-    lx = s_in["lens"].to(dev)
-    fwd = dsb.sbrt(x, lx, dsb.MODE_RANK, False)
-    full_got["sbrt"] = [fwd.cpu(),
-                        dsb.sbrt(fwd, lx, dsb.MODE_RANK, True).cpu()]
-    del x, lx, fwd
+            err[name] = max(err[name], max_abs_err(got, ref))
+            if mode == dsb.MODE_RANK:
+                plain_ms[name] = ms
+    log(f"kernels sbrt_*: max_abs_err {err} against their plain versions "
+        f"at {len(small)} x {SMALL_SBRT >> 10} KiB, ragged lengths, "
+        f"segments of {SMALL_SEGMENT} bytes, modes 1-3 both ways")
+    if s_in is not None:
+        x = s_in["blocks"].to(dev)
+        lx = s_in["lens"].to(dev)
+        fwd = dsb.sbrt(x, lx, dsb.MODE_RANK, False)
+        full_got["sbrt"] = [fwd.cpu(),
+                            dsb.sbrt(fwd, lx, dsb.MODE_RANK, True).cpu()]
+        del x, lx, fwd
 
     b, m = rank_in.shape
+    mode, seg = dsb.MODE_RANK, dsb.SEGMENT
     lens = torch.full((b,), m, dtype=torch.int64, device=dev)
-    ms = median_ms(lambda: dsb.sbrt(rank_in, lens, dsb.MODE_RANK, False), 3)
-    fwd = dsb.sbrt(rank_in, lens, dsb.MODE_RANK, False)
-    ms_inv = median_ms(lambda: dsb.sbrt(fwd, lens, dsb.MODE_RANK, True), 3)
-    inv = dsb.sbrt(fwd, lens, dsb.MODE_RANK, True)
+    x, _ = dsb.kernel_rows(rank_in, lens)
+    occ = dsb.launch_occ(x, lens, seg)
+    state = dsb.launch_entry(*occ, mode)
+    ms = {"sbrt_occ": median_ms(lambda: dsb.launch_occ(x, lens, seg), 5),
+          "sbrt_entry": median_ms(lambda: dsb.launch_entry(*occ, mode), 5),
+          "sbrt_fwd": median_ms(
+              lambda: dsb.launch_fwd(x, lens, seg, *state, mode), 5)}
+    del occ, state
+    ms_whole = median_ms(lambda: dsb.sbrt(rank_in, lens, mode, False), 5)
+    fwd = dsb.sbrt(rank_in, lens, mode, False)
+    xf, _ = dsb.kernel_rows(fwd, lens)
+    ms["sbrt_inv"] = median_ms(lambda: dsb.launch_inv(xf, lens, mode), 3)
+    dsb.launch_inv(xf, lens, mode)
+    time.sleep(ms["sbrt_inv"] / 4000)
+    mhz = sm_clock_mhz()
+    inv = dsb.sbrt(fwd, lens, mode, True)
     if not torch.equal(inv, rank_in):
         fail("sbrt: the inverse does not give back the RANK input")
     host_in, host_fwd = rank_in.cpu().numpy(), fwd.cpu().numpy()
@@ -865,25 +949,51 @@ def check_sbrt_kernel(rank_in, dsb, native, s_in, full_got) -> dict:
         for k, (src, want) in enumerate(((host_in[i], host_fwd[i]),
                                          (host_fwd[i], host_in[i]))):
             t0 = time.perf_counter()
-            h = native.sbrt(src, dsb.MODE_RANK, inverse=k == 1)
+            h = native.sbrt(src, mode, inverse=k == 1)
             host_s[k] += time.perf_counter() - t0
             if not np.array_equal(h, want):
                 fail(f"sbrt: block {i} differs from native.sbrt "
                      f"({'inverse' if k else 'forward'})")
-    visits = sbrt_visits(rank_in, fwd, *dsb._MODES[dsb.MODE_RANK])
-    log(f"kernel sbrt: {b} blocks of {m} bytes (the level-5 RANK input), "
-        f"one step a byte: forward kernel_ms {ms} ({1e6 * ms / m:.2f} ns "
-        f"per dependent step), inverse {ms_inv} ({1e6 * ms_inv / m:.2f} "
-        f"ns); native.sbrt on the host, {b} blocks one after another: "
-        f"forward {1000 * host_s[0]:.3f} ms, inverse "
+    visits = sbrt_visits(rank_in, fwd, *dsb._MODES[mode])
+    from kanzi_tpu_torch.ops import _build
+    lib = _build.library_path("sbrt.cu")
+    n_fwd, st_fwd = sass_step(lib, "sbrt_fwd_kernel", "REDUX")
+    n_inv, st_inv = sass_step(lib, "sbrt_inv_kernel", "SHFL.IDX")
+    low = [float((fwd < k).float().mean()) for k in (8, 32)]
+    nseg = -(-m // seg)
+    log(f"kernels sbrt_*: {b} blocks of {m} bytes (the level-5 RANK "
+        f"input); the forward in {b * nseg} segments of {seg} bytes: "
+        f"sbrt_occ {ms['sbrt_occ']} ms, sbrt_entry {ms['sbrt_entry']} ms, "
+        f"sbrt_fwd {ms['sbrt_fwd']} ms ({1e6 * ms['sbrt_fwd'] / seg:.2f} "
+        f"ns per step of a segment's chain), the whole forward "
+        f"{ms_whole} ms; the inverse, one chain of {m} steps a block: "
+        f"{ms['sbrt_inv']} ms ({1e6 * ms['sbrt_inv'] / m:.2f} ns, "
+        f"{ms['sbrt_inv'] * mhz / m * 1e3:.1f} cycles a step at the {mhz} "
+        f"MHz SM clock read during a launch); ptxas's schedule "
+        f"(cuobjdump -sass): the inverse {n_inv} instructions and {st_inv} "
+        f"static stall cycles a step, a chain floor of {m} x {st_inv} / "
+        f"{mhz} MHz = {m * st_inv / mhz / 1e3:.1f} ms before the shuffle's "
+        f"and the shared load's waits; sbrt_fwd {n_fwd} instructions and "
+        f"{st_fwd} static stall cycles a step; share of ranks < 8 in the "
+        f"forward's output {low[0]:.4f}, < 32 (the inverse's head) "
+        f"{low[1]:.4f}; native.sbrt on the host, {b} blocks "
+        f"one after another: forward {1000 * host_s[0]:.3f} ms, inverse "
         f"{1000 * host_s[1]:.3f} ms; bytes == native.sbrt's both ways; "
         f"plain_ms {plain_ms} at {b} x {SMALL_SBRT >> 10} KiB (once); the "
         f"host automaton's walks visit {visits} ranks "
         f"({visits / rank_in.numel():.3f} a step)")
-    return {"sbrt": dict(
-        err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound("sbrt", nbytes(rank_in, lens, fwd), rank_in.numel(),
-                SBRT_VISIT_OPS * visits))}
+    # the forward is one function over three kernels: its bytes (the
+    # input read once by sbrt_occ, lens and the output by sbrt_fwd) and
+    # its operations (every step and walk, all in sbrt_fwd); the entry
+    # states are the design's own scratch
+    ops = OPS["sbrt"] * rank_in.numel() + SBRT_VISIT_OPS * visits
+    bounds = split_bound({"sbrt_occ": (nbytes(rank_in), 0),
+                          "sbrt_entry": (0, 0),
+                          "sbrt_fwd": (nbytes(lens, fwd), ops)})
+    bounds["sbrt_inv"] = bound("sbrt", nbytes(fwd, lens, inv),
+                               rank_in.numel(), SBRT_VISIT_OPS * visits)
+    return {k: dict(err=err[k], ms=ms[k], plain_ms=plain_ms[k],
+                    library_ms=None, **bounds[k]) for k in err}
 
 
 def check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate) -> None:
@@ -918,8 +1028,9 @@ def check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate) -> None:
     if kanzi_tpu_torch.decompress_bytes(blob) != corpus:
         fail("decompress_bytes of the level-5 chain's container differs "
              "from the input")
-    for k, counts in (("sbrt", enc), ("ans0_encode_scan", enc),
-                      ("ans0_compact", enc), ("sbrt", dec),
+    for k, counts in (("sbrt_occ", enc), ("sbrt_entry", enc),
+                      ("sbrt_fwd", enc), ("ans0_encode_scan", enc),
+                      ("ans0_compact", enc), ("sbrt_inv", dec),
                       ("ans0_decode", dec)):
         if counts.get(k, 0) < 1:
             fail(f"kernel {k} was not launched by the device level-5 chain")
@@ -964,9 +1075,10 @@ def report_kernels(kres: dict) -> None:
                                "16 x 64 KiB",
                  "fpaq_encode": "16 streams of 4 MiB; plain on the card "
                                 "at 64 x 8 KiB",
-                 "sbrt": "16 RANK inputs of 4 MiB + 33, forward; plain on "
-                         "the card at 16 x 16 KiB"
                  }.get(k, f"C={N_CHUNKS}")
+        if k.startswith("sbrt_"):
+            shape = ("16 RANK inputs of 4 MiB + 33; plain on the card at "
+                     "16 x 16 KiB")
         log(f"kernel {k}: max_abs_err {r['err']} kernel_ms {r['ms']} "
             f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
             f"bound_ms {r['bound_ms']} ({r['bound_by']}) ({shape})")
@@ -1028,8 +1140,9 @@ def run(workers: dict, mode: str) -> None:
     corpus = make_corpus(N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
     dev = torch.device("cuda", 0)
-    if mode == "full":
+    if mode != "containers":
         rank_in = l5_rank_inputs(corpus, pp, dev)
+    if mode == "full":
         WORK.mkdir(parents=True, exist_ok=True)
         workers.update(start_plain_workers(corpus, dans1, dfp, native,
                                            rank_in))
@@ -1045,6 +1158,8 @@ def run(workers: dict, mode: str) -> None:
         if mode == "kernels":
             kres.update(check_fpaq_kernel(corpus, dfp, native, dev, None,
                                           full_got))
+            kres.update(check_sbrt_kernels(rank_in, dsb, native, None,
+                                           full_got))
             report_kernels(kres)
             return
         kres.update(check_ans1_kernel(corpus, dans1, native, dev,
@@ -1052,8 +1167,8 @@ def run(workers: dict, mode: str) -> None:
                                       full_got))
         kres.update(check_fpaq_kernel(corpus, dfp, native, dev,
                                       workers["fpaq_encode"][0], full_got))
-        kres.update(check_sbrt_kernel(rank_in, dsb, native,
-                                      workers["sbrt"][0], full_got))
+        kres.update(check_sbrt_kernels(rank_in, dsb, native,
+                                       workers["sbrt"][0], full_got))
         del rank_in
         torch.cuda.empty_cache()
         report_kernels(kres)

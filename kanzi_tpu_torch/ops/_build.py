@@ -65,9 +65,16 @@ SIGNATURES = {
         "fpaq_encode": [_P, _P, _I, _L, _I, _L, _P, _P, _P, _I, _P],
     },
     "sbrt.cu": {
-        # blocks, lens, n_blocks, ld, m1, m2, shift, inverse, out, device,
-        # stream
-        "sbrt": [_P, _P, _I, _L, _I, _I, _I, _I, _P, _I, _P],
+        # blocks, lens, n_blocks, ld, seg, occ_last, occ_sec, device, stream
+        "sbrt_occ": [_P, _P, _I, _L, _I, _P, _P, _I, _P],
+        # occ_last, occ_sec, n_blocks, nseg, m1, m2, shift, ent_last, ent_q,
+        # device, stream
+        "sbrt_entry": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+        # blocks, lens, n_blocks, ld, seg, ent_last, ent_q, m1, m2, shift,
+        # out, device, stream
+        "sbrt_fwd": [_P, _P, _I, _L, _I, _P, _P, _I, _I, _I, _P, _I, _P],
+        # blocks, lens, n_blocks, ld, m1, m2, shift, out, device, stream
+        "sbrt_inv": [_P, _P, _I, _L, _I, _I, _I, _P, _I, _P],
     },
 }
 
