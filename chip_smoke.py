@@ -19,7 +19,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    bytes and operations of these inputs (D's and F's as one function
    each, split between their two kernels). Kernels A-E at the main
    path's shape (4096 chunks of 16 KiB; A's time also per dependent
-   step), D's code-table prologue and its pack timed apart; D's
+   step), D's code-table prologue and its pack timed apart; E on the
+   3840 of them that the card codes and, held and timed apart, on one
+   4 MiB block's first 256 (the container's launch), each with ns a
+   step, and E's step as ptxas scheduled it (sass_step) with its chain
+   floor at the SM clock read during a queue of launches; D's
    prologue also on 512 geometric chunks, whose codes run past 12 bits
    (the length limit and its slow path on the card), every chunk of
    more than one symbol required ok. F (order-1 ANS: F1 the gather, F2
@@ -56,7 +60,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    kanzi_tpu_torch.ops disabled: the port's native C++ coders), and
    every kernel of the path launched (F once for the 16 ANS1 blocks,
    no compaction B and no chunk coded on the host, huff_host_chunks,
-   for Huffman); then one run of each Huffman direction and of the ANS1
+   for Huffman, and E once a block that has a chunk of more than one
+   symbol); then one run of each Huffman direction and of the ANS1
    and FPAQ encodes under torch.profiler (device time by kernel, the
    copies' sums by kind, the device's idle share) and under cProfile
    (host self time);
@@ -182,6 +187,9 @@ SMALL_SBRT = 16 << 10               # SBRT against its plain versions on the
 SMALL_SEGMENT = 1 << 10             # the forward cut into segments of this
 HOST_SBRT_BYTES = 256 << 10         # and on the CPU: each RANK input's
                                     # first bytes
+# E's step in the SASS: the length table's byte load (the symbol's
+# takes the same address plus an offset)
+E_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -450,6 +458,13 @@ def geometric_chunks(n: int) -> np.ndarray:
     return out
 
 
+def coded_blocks(corpus: bytes) -> int:
+    """The corpus's 4 MiB blocks that hold a 16 KiB chunk of more than
+    one symbol: those the Huffman decode hands to kernel E."""
+    a = np.frombuffer(corpus, np.uint8).reshape(-1, BLOCK // 16384, 16384)
+    return int((a != a[:, :, :1]).any(2).any(1).sum())
+
+
 def length_limits(dhuff, hist) -> tuple:
     """(chunks whose code runs past 12 bits, chunks of those that take
     the limit's slow path), from the plain version's limit."""
@@ -545,6 +560,38 @@ def check_huffman_kernels(chunks, dhuff) -> tuple:
         **bound("huff_decode", nbytes(tbl, pay, bounds, got), got.numel()))
     if not torch.equal(got, chunks[sel]):
         fail("huff_decode does not round-trip the encoded chunks")
+    # and at the main path's launch: one 4 MiB block's chunks, the first
+    # 256 that the card codes
+    k = BLOCK // dhuff.CHUNK
+    one = (tbl[:k], pay[:int(bounds[4 * k])], bounds[:4 * k + 1])
+    got = dhuff.huff_decode(*one)
+    res["huff_decode"]["err"] = max(res["huff_decode"]["err"],
+                                    max_abs_err(got,
+                                                dhuff.huff_decode_plain(*one)))
+    ms_one = median_ms(lambda: dhuff.huff_decode(*one), 9)
+    res["huff_decode"]["shape"] = (f"C={len(tbl)}, the chunks the card "
+                                   f"codes; one block's {k}: {ms_one} ms")
+    # the SM clock during a queue of launches, and ptxas's step
+    ms = res["huff_decode"]["ms"]
+    for _ in range(int(300 / ms)):
+        dhuff.huff_decode(tbl, pay, bounds)
+    time.sleep(0.1)
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    from kanzi_tpu_torch.ops import _build
+    n_ins, stall = sass_step(_build.library_path("huffman.cu"),
+                             "huff_decode_kernel", E_ANCHOR)
+    steps = dhuff.FRAG
+    log(f"kernel E (huff_decode): {len(tbl)} chunks {ms} ms, "
+        f"{1e6 * ms / steps:.2f} ns per step ({steps} a fragment); one "
+        f"block's {k} chunks (the main path's launch) {ms_one} ms, "
+        f"{1e6 * ms_one / steps:.2f} ns per step, "
+        f"{ms_one * mhz / steps * 1e3:.1f} cycles at the {mhz} MHz SM "
+        f"clock read during a queue of launches; ptxas's schedule "
+        f"(cuobjdump -sass): {n_ins} instructions and {stall} static "
+        f"stall cycles a step, a chain floor of {steps} x {stall} / "
+        f"{mhz} MHz = {steps * stall / mhz / 1e3:.4f} ms before the "
+        f"shared loads' waits")
     over, slow = length_limits(dhuff, hist)
     log(f"huffman: {int(ok.sum())} of {len(ok)} chunks coded on the card "
         f"(the rest: one symbol, a header only); {over} codes past 12 "
@@ -849,9 +896,10 @@ def sass_step(lib: Path, kernel: str, anchor: str) -> tuple:
     """(instructions, static stall cycles) of one step of `kernel` in the
     built library, read from cuobjdump -sass: each instruction's second
     64-bit word carries ptxas's stall count in bits 41-44. A step runs
-    from one `anchor` instruction (one a step) to the next; the median
-    over the unrolled loop's steps. The waits on variable-latency
-    results (shuffles, shared-memory loads) are not in the count."""
+    from one instruction that matches the regex `anchor` (one a step)
+    to the next; the median over the unrolled loop's steps. The waits on
+    variable-latency results (shuffles, shared-memory loads) are not in
+    the count."""
     from kanzi_tpu_torch.ops import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     lines = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -861,12 +909,12 @@ def sass_step(lib: Path, kernel: str, anchor: str) -> tuple:
     for k, line in enumerate(lines):
         if "Function :" in line:
             inside = kernel in line
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(\S+).*/\* 0x[0-9a-f]+ \*/",
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(.*?)\s*/\* 0x[0-9a-f]+ \*/",
                      line)
         if inside and m:
             hi = int(re.search(r"0x[0-9a-f]+", lines[k + 1]).group(), 16)
             ins.append((m.group(1), (hi >> 41) & 0xF))
-    at = [k for k, (op, _) in enumerate(ins) if op.startswith(anchor)]
+    at = [k for k, (op, _) in enumerate(ins) if re.match(anchor, op)]
     if len(at) < 2:
         fail(f"sass_step: no two {anchor} in {kernel}")
     steps = [(b - a, sum(st for _, st in ins[a:b]))
@@ -1075,7 +1123,7 @@ def report_kernels(kres: dict) -> None:
                                "16 x 64 KiB",
                  "fpaq_encode": "16 streams of 4 MiB; plain on the card "
                                 "at 64 x 8 KiB",
-                 }.get(k, f"C={N_CHUNKS}")
+                 }.get(k, r.get("shape", f"C={N_CHUNKS}"))
         if k.startswith("sbrt_"):
             shape = ("16 RANK inputs of 4 MiB + 33; plain on the card at "
                      "16 x 16 KiB")
@@ -1217,11 +1265,18 @@ def run(workers: dict, mode: str) -> None:
         if entropy == "HUFFMAN" and "ans0_compact" in counts:
             fail("the NONE/HUFFMAN container launched the compaction B")
         if entropy == "HUFFMAN":
-            # the card limits over-long codes, its slow path included
+            # the card limits over-long codes, its slow path included;
+            # the decode launches E once a block that has a chunk to code
+            want = coded_blocks(corpus)
             log(f"container NONE/HUFFMAN: huff_host_chunks "
-                f"{counts.get('huff_host_chunks', 0)}")
+                f"{counts.get('huff_host_chunks', 0)}; huff_decode "
+                f"launches {counts['huff_decode']}, blocks with a chunk "
+                f"of more than one symbol {want}")
             if counts.get("huff_host_chunks", 0):
                 fail("the NONE/HUFFMAN container coded chunks on the host")
+            if counts["huff_decode"] != want:
+                fail("the NONE/HUFFMAN decode did not launch E once a "
+                     "block")
         if entropy == "ANS1" and (counts["ans1_gather"] != 1
                                   or counts["ans1_chain"] != 1):
             fail("the 16 blocks of the NONE/ANS1 container took more than "

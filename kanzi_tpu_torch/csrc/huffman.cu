@@ -477,68 +477,221 @@ huff_pack_kernel(const uint8_t* __restrict__ chunks,
 }
 
 // ---------------------------------------------------------------------
-// E. Decode. One thread per fragment, 4 per chunk, 8 chunks per
-// warp-sized block. The chunk's direct 4096-entry sym | len<<8 table
-// (8 KiB as u16, the flat table of _build_vt) sits in dynamic shared
-// memory, so a step is one shared load on the 12 bits at the cursor; this
-// replaces the TPU's boundary-bitmap rank table and its overlapped-word
-// payload windows. Each thread keeps a small bit buffer refilled a byte
-// at a time from its fragment's bytes in the flat payload; a byte past
-// the fragment's end (or past the payload) reads 0, so a corrupt or short
-// fragment never reads out of bounds and decodes as if zero-padded, as
-// the JAX package's padded rows do.
+// E. Decode. One thread per fragment, 4 per chunk; a block takes the
+// chunks of one SM's share of a wave, at most kDecMaxChunks, so that a
+// batch of one 4 MiB block (~240 chunks) spreads over the SMs and 3840
+// chunks take two waves.
 //
-// Bound: the 4096-step dependent chain per fragment (shared load, shift,
-// refill). 64 KiB of shared memory per 8 chunks allows 3 blocks per SM.
+// A fragment's bits sit in a 64-bit buffer, MSB first, holding 33-64 of
+// them: the 12-bit index is its top 12 bits, a step shifts it left by
+// the code's length, and where 32 bits or fewer are left the next stream
+// word goes in below them, through selects: no lane branches. The bits
+// it adds lie below the top 12 bits (at least 18 are left), so the next
+// index is taken before them and never waits for the refill.
+//
+// Each chunk's table (decode_table: sym | len<<8, 8 KiB) is split in the
+// prologue into a length table and a symbol table of 4 KiB each, one
+// after the other in shared memory, so that a step's chain is one byte
+// load at an address one LEA.HI from the bit buffer, a funnel shift, and
+// the next address; the symbol's load takes the same address.
+//
+// The stream's words come from a ring in shared memory, 64 words a lane
+// (the lanes interleaved word by word, so that each lane keeps to its
+// own bank): every 64 steps a lane whose buffer has left one half of its
+// ring fills that half with 32 words loaded 16 bytes at a time one fill
+// before, byte-swapped and with the bytes at or past the fragment's end
+// (or the payload's) cleared. No load leaves the payload. A step reads
+// the ring at the buffer's next word (one shared load off the chain); 64
+// steps take at most 30 words, so the ring never runs dry. A first design
+// loaded each word from global memory one word ahead: the warp's
+// scoreboard made every step wait for the slowest lane's load, ~154
+// cycles a step against ~69 here (PERF.md).
+//
+// Bound: the 4096-step chain of each fragment (a shared load and two
+// integer operations a step); the fragments run side by side. The
+// symbols go out 16 bytes at a time.
 // ---------------------------------------------------------------------
 
-constexpr int kDecChunks = 8;    // chunks per block, 4 threads each
-constexpr int kDecSmem = kDecChunks * kTable * (int)sizeof(uint16_t);
+constexpr int kDecMaxChunks = 24;               // chunks a block at most
+constexpr int kDecTables = 2 * kTable;          // a chunk's lengths, symbols
+constexpr int kRingWords = 64;                  // a lane's ring: 2 halves
+constexpr int kFillWords = kRingWords / 2;      // of 32 words
+constexpr int kFillSteps = 64;                  // steps between fills
+constexpr int64_t kFarBytes = 1 << 16;          // past any byte a
+                                                // fragment's decode reads
 
-__global__ void __launch_bounds__(kDecChunks * 4)
+// the threads of a block of per_block chunks: a multiple of 32 (those
+// past 4 * per_block only help load the tables), and the lane stride of
+// the rings, so that lane L's words all sit in bank L % 32
+__host__ __device__ constexpr int dec_threads(int per_block) {
+  return (4 * per_block + 31) & ~31;
+}
+
+constexpr int kDecMaxThreads = dec_threads(kDecMaxChunks);
+
+__host__ __device__ constexpr int dec_smem(int per_block) {
+  return per_block * kDecTables + 4 * kRingWords * dec_threads(per_block);
+}
+
+// A fragment's stream from the 16-byte vector holding its first byte:
+// vector v at p[v], loaded where v - lo < span (unsigned: none before
+// the payload, none wholly at or past the end), and the bits from the
+// stream's word 0 to the end.
+struct FragFeed {
+  const uint4* p;
+  int lo;
+  uint32_t span;
+  int tb;
+};
+
+// the 32 words from word f of the stream into pf, 16 bytes a load
+__device__ __forceinline__ void feed_load(const FragFeed& fd, int f,
+                                          uint4 (&pf)[kFillWords / 4]) {
+#pragma unroll
+  for (int k = 0; k < kFillWords / 4; ++k) {
+    const int v = f / 4 + k;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    asm("{\n\t.reg .pred q;\n\tsetp.lt.u32 q, %5, %6;\n\t"
+        "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
+        : "+r"(x.x), "+r"(x.y), "+r"(x.z), "+r"(x.w)
+        : "l"(fd.p + v), "r"((uint32_t)(v - fd.lo)), "r"(fd.span));
+    pf[k] = x;
+  }
+}
+
+// pf (words f .. f + 31) into the lane's half of the ring, big-endian,
+// the bytes at or past the end cleared where the half reaches it
+__device__ __forceinline__ void feed_store(const FragFeed& fd, int f,
+                                           const uint4 (&pf)[kFillWords / 4],
+                                           uint32_t* ring, int stride) {
+  const bool whole = 32 * (f + kFillWords) <= fd.tb;
+#pragma unroll
+  for (int k = 0; k < kFillWords / 4; ++k) {
+    const uint32_t x[4] = {pf[k].x, pf[k].y, pf[k].z, pf[k].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = f + 4 * k + j;
+      uint32_t wd = __byte_perm(x[j], 0, 0x0123);
+      if (!whole)     // keep the bits below the end: min(t, 32) of them
+        wd &= ~__funnelshift_rc(0xFFFFFFFFu, 0u,
+                                (uint32_t)max(fd.tb - 32 * n, 0));
+      ring[(n & (kRingWords - 1)) * stride] = wd;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDecMaxThreads)
 huff_decode_kernel(const uint16_t* __restrict__ tbl,
                    const uint8_t* __restrict__ pay, int64_t n_pay,
                    const int64_t* __restrict__ bounds, int n_chunks,
-                   uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint16_t s_tbl[];   // [kDecChunks][kTable]
-  const int c0 = blockIdx.x * kDecChunks;
-  for (int i = threadIdx.x; i < kDecChunks * kTable / 8; i += blockDim.x) {
-    const int g = i / (kTable / 8);
-    const int k = i % (kTable / 8);
-    if (c0 + g < n_chunks) {
-      reinterpret_cast<uint4*>(s_tbl + g * kTable)[k] =
-          reinterpret_cast<const uint4*>(tbl + (size_t)(c0 + g) * kTable)[k];
+                   int per_block, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t s_dec[];   // [per_block][2][4096]
+  const int stride = blockDim.x;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(s_dec + per_block *
+                                               kDecTables) + threadIdx.x;
+  const int c0 = blockIdx.x * per_block;
+  const int n_here = min(per_block, n_chunks - c0);
+
+  // the fragment's stream: two fills into the ring, the third in flight
+  const int g = threadIdx.x >> 2;
+  const int c = c0 + g;
+  const bool live = g < n_here;
+  const int64_t r = (int64_t)(live ? c : 0) * 4 + (threadIdx.x & 3);
+  const int64_t s = max(bounds[r], -kFarBytes);
+  const int64_t vs = s >> 4;                   // the vector holding byte s
+  int64_t e = min(bounds[r + 1], n_pay);
+  if (e < s) e = 16 * vs;                      // no byte: no vector from vs
+  FragFeed fd;
+  fd.p = reinterpret_cast<const uint4*>(pay) + vs;
+  fd.lo = (int)max(-vs, (int64_t)0);
+  fd.span = (uint32_t)min(max((e + 15) / 16 - vs - fd.lo, (int64_t)0),
+                          kFarBytes);
+  fd.tb = (int)min(8 * (e - 16 * vs), 8 * kFarBytes);
+  uint4 pf[kFillWords / 4];
+  if (live) {
+    feed_load(fd, 0, pf);
+    feed_store(fd, 0, pf, ring, stride);
+    feed_load(fd, kFillWords, pf);
+  }
+
+  // the tables: each 16-byte load of 8 entries splits into their
+  // lengths (& 15: decode_table's are at most 12) and their symbols
+  const uint4* src = reinterpret_cast<const uint4*>(tbl + (size_t)c0 * kTable);
+  const int n_vec = n_here * (kTable / 8);
+  for (int i0 = threadIdx.x; i0 < n_vec; i0 += 8 * blockDim.x) {
+    uint4 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + k * blockDim.x;
+      v[k] = i < n_vec ? __ldg(src + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i < n_vec) {
+        uint8_t* t = s_dec + (i >> 9) * kDecTables + 8 * (i & 511);
+        *reinterpret_cast<uint2*>(t) = make_uint2(
+            __byte_perm(v[k].x, v[k].y, 0x7531) & 0x0F0F0F0Fu,
+            __byte_perm(v[k].z, v[k].w, 0x7531) & 0x0F0F0F0Fu);
+        *reinterpret_cast<uint2*>(t + kTable) = make_uint2(
+            __byte_perm(v[k].x, v[k].y, 0x6420),
+            __byte_perm(v[k].z, v[k].w, 0x6420));
+      }
     }
   }
   __syncthreads();
+  if (!live) return;
 
-  const int g = threadIdx.x >> 2;
-  const int f = threadIdx.x & 3;
-  const int c = c0 + g;
-  if (c >= n_chunks) return;
-  const uint16_t* t = s_tbl + g * kTable;
-  int64_t pos = bounds[(size_t)c * 4 + f];
-  int64_t end = bounds[(size_t)c * 4 + f + 1];
-  if (end > n_pay) end = n_pay;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)c * kChunk +
-                                              f * kFrag);
-  uint32_t buf = 0;   // the low `have` bits are the stream at the cursor
-  int have = 0;
-  for (int i = 0; i < kFrag / 4; ++i) {
-    uint32_t word = 0;
+  feed_store(fd, kFillWords, pf, ring, stride);
+  int filled = kRingWords;                     // words in the ring so far
+  feed_load(fd, filled, pf);
+  int u = (int)(s & 15) >> 2;                  // the first word
+  const uint32_t sk = 8 * (uint32_t)(s & 3);
+  const uint32_t w0 = ring[u * stride], w1 = ring[(u + 1) * stride];
+  uint32_t hi = __funnelshift_l(w1, w0, sk);
+  uint32_t lo = w1 << sk;
+  uint32_t room = sk;                          // 64 - bits in the buffer
+  u += 2;                                      // the next word's index
+  uint32_t w = ring[u * stride];
+  uint32_t idx = hi >> 20;
+
+  const uint8_t* tl = s_dec + g * kDecTables;
+  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)c * kChunk +
+                                        (threadIdx.x & 3) * kFrag);
+  auto step = [&]() -> uint32_t {
+    const uint32_t len = tl[idx];
+    const uint32_t sym = tl[idx + kTable];
+    const uint32_t hi2 = __funnelshift_l(lo, hi, len);
+    idx = hi2 >> 20;                           // apart from the refill
+    const uint32_t lo2 = lo << len;
+    const uint32_t room2 = room + len;
+    const uint32_t take = room2 >> 5;          // <= 32 bits left: take w
+    const uint32_t wv = take ? w : 0u;
+    hi = hi2 | __funnelshift_l(wv, 0u, room2);
+    lo = lo2 | (wv << (room2 & 31));
+    room = room2 & 31;
+    u += (int)take;
+    w = ring[(u & (kRingWords - 1)) * stride];
+    return sym;
+  };
+  for (int i = 0; i < kFrag / kFillSteps; ++i) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      while (have < 12) {
-        const uint32_t b = (pos >= 0 && pos < end) ? pay[pos] : 0u;
-        ++pos;
-        buf = (buf << 8) | b;
-        have += 8;
+    for (int h = 0; h < kFillSteps / 16; ++h) {
+      uint32_t q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t e0 = step(), e1 = step(), e2 = step(), e3 = step();
+        q[k] = __byte_perm(__byte_perm(e0, e1, 0x0040),
+                           __byte_perm(e2, e3, 0x0040), 0x5410);
       }
-      const uint32_t e = t[(buf >> (have - 12)) & 0xFFF];
-      word |= (e & 0xFF) << (8 * k);
-      have -= (int)(e >> 8);
+      dst[i * (kFillSteps / 16) + h] = make_uint4(q[0], q[1], q[2], q[3]);
     }
-    dst[i] = word;
+    // a half is filled once the buffer has moved into the other one
+    if (filled - u <= kFillWords) {
+      feed_store(fd, filled, pf, ring, stride);
+      filled += kFillWords;
+      feed_load(fd, filled, pf);
+    }
   }
 }
 
@@ -593,14 +746,24 @@ int huff_decode(const void* tbl, const void* pay, int64_t n_pay,
                 void* stream) {
   cudaSetDevice(device);
   if (n_chunks > 0) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        huff_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kDecSmem);
+    int sms = 0;
+    cudaError_t rc = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
     if (rc != cudaSuccess) return (int)rc;
-    huff_decode_kernel<<<(n_chunks + kDecChunks - 1) / kDecChunks,
-                         kDecChunks * 4, kDecSmem, (cudaStream_t)stream>>>(
+    rc = cudaFuncSetAttribute(huff_decode_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              dec_smem(kDecMaxChunks));
+    if (rc != cudaSuccess) return (int)rc;
+    // as few waves as shared memory allows, the chunks spread evenly
+    // over the SMs within them
+    const int waves = (n_chunks + sms * kDecMaxChunks - 1) /
+                      (sms * kDecMaxChunks);
+    const int per_block = (n_chunks + sms * waves - 1) / (sms * waves);
+    huff_decode_kernel<<<(n_chunks + per_block - 1) / per_block,
+                         dec_threads(per_block), dec_smem(per_block),
+                         (cudaStream_t)stream>>>(
         (const uint16_t*)tbl, (const uint8_t*)pay, n_pay,
-        (const int64_t*)bounds, n_chunks, (uint8_t*)out);
+        (const int64_t*)bounds, n_chunks, per_block, (uint8_t*)out);
   }
   return (int)cudaGetLastError();
 }

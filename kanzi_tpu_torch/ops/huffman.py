@@ -20,8 +20,11 @@ behind a wrapper with a plain PyTorch version beside it:
   every fragment's codes straight into the flat pair stream at offsets
   cumsummed from those counts, one warp a fragment (Pallas
   ``_gather_kernel1`` + the ``lax.scan`` + the compaction).
-- ``huff_decode``: the 4-fragment decode through a direct 12-bit prefix
-  table in shared memory (Pallas ``_huff_decode_kernel``).
+- ``huff_decode``: the 4-fragment decode, one thread a fragment, its
+  bits in a 64-bit buffer refilled through selects from a ring of its
+  stream's words in shared memory, the direct 12-bit prefix table split
+  into a length table and a symbol table there (Pallas
+  ``_huff_decode_kernel``).
 
 The Huffman encode launches no compaction (kernel B). A chunk whose
 Moffat-Katajainen code runs past MAX_SYMBOL_SIZE bits has its lengths
@@ -538,11 +541,19 @@ def huff_decode(tbl, pay, bounds):
     """tbl [C, 4096] int16 (decode_table); pay [N] uint8, every
     fragment's bytes back to back; bounds [4C + 1] int64, fragment f of
     chunk c is pay[bounds[4c + f] : bounds[4c + f + 1]]. Returns the
-    decoded chunks [C, CHUNK] uint8, fragment-major."""
+    decoded chunks [C, CHUNK] uint8, fragment-major. A byte at or past
+    a fragment's end, past N or before 0 reads 0. The kernel takes each
+    entry's length mod 16 (decode_table's are at most 12: the parses
+    refuse longer codes) and needs tbl and pay 16-byte aligned, as a
+    fresh allocation is."""
     c, dev = tbl.shape[0], tbl.device
     _check("tbl", tbl, torch.int16, (c, TABLE), dev)
     _check("pay", pay, torch.uint8, (pay.numel(),), dev)
     _check("bounds", bounds, torch.int64, (4 * c + 1,), dev)
+    if dev.type != "cpu":
+        for name, t in (("tbl", tbl), ("pay", pay)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: must be 16-byte aligned")
     if _on_cpu("huff_decode", dev):
         return huff_decode_plain(tbl, pay, bounds)
     out = torch.empty((c, CHUNK), dtype=torch.uint8, device=dev)

@@ -7,9 +7,9 @@ kanzi_tpu.ops.huffman.encode_chunks_np through huffman_encode_chunks
 (use_pallas=False) and huffman_decode_chunks through _huff_decode_xla,
 on one bucket of 8 chunks. On the CPU the port's kernel wrappers run
 their plain PyTorch versions; the kernels themselves are held against
-those versions by the needs_cuda test at the end, which skips without a
+those versions by the needs_cuda tests at the end, which skip without a
 card. The JAX package comes in through the ``jh`` fixture, so that the
-needs_cuda test also runs on a machine without JAX (KANZI_TEST_TPU=1
+needs_cuda tests also run on a machine without JAX (KANZI_TEST_TPU=1
 keeps conftest.py from importing it):
 
     KANZI_TEST_TPU=1 python -m pytest -m needs_cuda tests/test_torch_huffman.py
@@ -379,34 +379,43 @@ def test_decode_matches_jax_and_roundtrips(jh):
     assert np.array_equal(got, chunks[sel])
 
 
-def test_decode_reads_zero_past_the_fragment():
+def _decode_parts(tbl, parts, bounds_end=None):
+    """huff_decode of one fragment list as a flat payload; the last
+    bound is bounds_end where given (past the payload's end)."""
+    n = np.array([len(p) for p in parts])
+    pay = torch.from_numpy(np.frombuffer(b"".join(parts), np.uint8).copy())
+    bounds = np.concatenate([[0], np.cumsum(n)])
+    if bounds_end is not None:
+        bounds[-1] = bounds_end
+    return th.huff_decode(tbl, pay, torch.from_numpy(bounds))
+
+
+@pytest.mark.parametrize("cut", [0, 1, 2, 3, "empty"])
+def test_decode_reads_zero_past_the_fragment(cut):
     """A fragment cut short decodes as if zero-padded (the kernel reads
     0 past a fragment's end, never the next fragment's bytes), and the
-    other fragments come out intact."""
+    other fragments come out intact. Fragment 3 is cut at the payload's
+    end with its bound left where it was, so its bytes run past the
+    payload; an empty fragment (of fragment 1) reads as zeros."""
     chunks = _chunk_corpus()[:1]
     enc = th.encode_chunks_np(chunks, CPU)
     codes, sizes, _, _ = th.compute_code_tables(
         torch.from_numpy(_hist(chunks)))
     tbl = th.decode_table(codes & 0xFFF, sizes)
     frags = _fragments(enc)[0]
-    cut = frags[:1] + [frags[1][:100]] + frags[2:]
-    zero = frags[:1] + [frags[1][:100] + bytes(len(frags[1]) - 100)] \
-        + frags[2:]
-
-    def decode(parts):
-        n = np.array([len(p) for p in parts])
-        pay = torch.from_numpy(np.frombuffer(b"".join(parts), np.uint8)
-                               .copy())
-        bounds = torch.from_numpy(np.concatenate([[0], np.cumsum(n)]))
-        return th.huff_decode(tbl, pay, bounds)
-
-    got = decode(cut)
-    assert torch.equal(got, decode(zero))
+    f, keep = (1, 0) if cut == "empty" else (cut, 100)
+    cut_parts = frags[:f] + [frags[f][:keep]] + frags[f + 1:]
+    zero = frags[:f] + [frags[f][:keep] + bytes(len(frags[f]) - keep)] \
+        + frags[f + 1:]
+    past = sum(len(p) for p in frags) if f == 3 else None
+    got = _decode_parts(tbl, cut_parts, past)
+    assert torch.equal(got, _decode_parts(tbl, zero))
     ref = torch.from_numpy(chunks)
     frag = th.FRAG
-    assert torch.equal(got[:, :frag], ref[:, :frag])
-    assert torch.equal(got[:, 2 * frag:], ref[:, 2 * frag:])
-    assert not torch.equal(got[:, frag:2 * frag], ref[:, frag:2 * frag])
+    for k in range(4):
+        same = torch.equal(got[:, k * frag:(k + 1) * frag],
+                           ref[:, k * frag:(k + 1) * frag])
+        assert same == (k != f)
 
 
 @pytest.fixture
@@ -506,6 +515,14 @@ def test_wrappers_check_their_inputs():
                        torch.zeros(8, dtype=torch.int64))
     with pytest.raises(ValueError, match="no kernel"):
         th.huff_encode_scan(chunks.to("meta"), hist.to("meta"))
+    # E's kernel reads pay 16 bytes at a time from an aligned base
+    tbl = torch.zeros((2, th.TABLE), dtype=torch.int16, device="meta")
+    bounds = torch.zeros(9, dtype=torch.int64, device="meta")
+    pay = torch.zeros(64, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="pay: must be 16-byte aligned"):
+        th.huff_decode(tbl, pay[3:], bounds)
+    with pytest.raises(ValueError, match="no kernel"):
+        th.huff_decode(tbl, pay[16:], bounds)
 
 
 @pytest.fixture
@@ -558,3 +575,100 @@ def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert torch.equal(got.cpu(), torch.from_numpy(host[sel]))
+
+
+def _table(sizes):
+    """decode_table of one chunk's canonical code from its lengths by
+    symbol ([256], 0: absent), as [1, 4096] int16."""
+    sizes = np.asarray(sizes, np.int64)
+    codes, first = np.zeros(256, np.int64), 0
+    for ln in range(1, th.MAX_SYMBOL_SIZE + 1):
+        for sym in np.nonzero(sizes == ln)[0]:
+            codes[sym] = first
+            first += 1
+        first <<= 1
+    return th.decode_table(torch.from_numpy(codes)[None],
+                           torch.from_numpy(sizes)[None])
+
+
+def _encoded(host, device):
+    """(tbl, fragments, chunks) of the chunks of more than one symbol of
+    host [C, CHUNK], coded on device."""
+    enc = th.encode_chunks_np(host, device)
+    sel = np.nonzero(enc[2])[0]
+    codes, sizes = th.compute_code_tables(
+        torch.from_numpy(_hist(host[sel])).to(device))[:2]
+    frags = _fragments(enc)
+    return (th.decode_table(codes & 0xFFF, sizes),
+            [frags[ci][f] for ci in sel for f in range(4)], host[sel])
+
+
+def _decode_case(case, device):
+    """(tbl, pay, bounds, chunks) of one needs_cuda case of kernel E;
+    chunks are the input the decode gives back, None where the payload
+    is not a coded one."""
+    rng = np.random.default_rng(11)
+    if case.startswith("chunks-"):
+        n = int(case.split("-")[1])
+        host = rng.integers(0, 256, (n, CHUNK)).astype(np.uint8)
+        host[n // 3:] = rng.geometric(0.05, (n - n // 3, CHUNK)).astype(
+            np.uint8)
+        special = np.concatenate(
+            [_chunk_corpus(), np.stack(list(_over_length_chunks().values()))])
+        host[:min(n, len(special))] = special[:n]
+        tbl, parts, chunks = _encoded(host, device)
+        bounds = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+        pay = np.frombuffer(b"".join(parts), np.uint8)
+    elif case in ("all-12-bit", "one-bit"):
+        # every entry of the table 12 bits long (256 codes of 12 bits,
+        # the rest of the table the last one's) or 1 bit long: random
+        # fragments of 6144 and 512 bytes, 4 chunks
+        sizes = np.full(256, 12) if case == "all-12-bit" else \
+            np.array([1, 1] + [0] * 254)
+        tbl = _table(sizes).repeat(4, 1)
+        nb = 6144 if case == "all-12-bit" else 512
+        pay = rng.integers(0, 256, 16 * nb).astype(np.uint8)
+        bounds = np.arange(17) * nb
+        chunks = None
+    else:
+        tbl, parts, chunks = _encoded(_chunk_corpus(), device)
+        parts = list(parts)
+        if case == "cut":
+            parts[5] = parts[5][:300]
+            chunks = None
+        elif case == "empty":
+            parts[6] = b""
+            chunks = None
+        bounds = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+        pay = np.frombuffer(b"".join(parts), np.uint8)
+        if case == "end-of-pay":
+            bounds[-1] += 100      # past the payload: reads 0 there
+        elif case.startswith("offset-"):
+            k = int(case.split("-")[1])
+            pay = np.concatenate([rng.integers(0, 256, k).astype(np.uint8),
+                                  pay])
+            bounds = bounds + k
+    return (tbl.to(device), torch.from_numpy(pay.copy()).to(device),
+            torch.from_numpy(np.asarray(bounds, np.int64)).to(device),
+            chunks)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", [f"offset-{k}" for k in range(16)] + [
+    "cut", "empty", "end-of-pay", "all-12-bit", "one-bit", "chunks-8",
+    "chunks-256", "chunks-4000"])
+def test_decode_kernel_matches_plain_on_cuda(cuda_device, case):
+    """Kernel E against its plain version on the card: fragments that
+    start at every byte offset mod 16 (the payload behind 0-15 filler
+    bytes), a fragment cut short, an empty one, the last fragment ending
+    at the payload's end with its bound past it, codes all 12 bits long
+    (fragments of 6144 bytes) and all 1 bit long, and coded chunks in
+    batches of 8, 256 and 4000 (more than one wave of blocks); the coded
+    cases give their chunks back."""
+    tbl, pay, bounds, chunks = _decode_case(case, cuda_device)
+    got = th.huff_decode(tbl, pay, bounds)
+    ref = th.huff_decode_plain(tbl, pay, bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if chunks is not None:
+        assert torch.equal(got.cpu(), torch.from_numpy(chunks))
