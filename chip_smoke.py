@@ -19,7 +19,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    bytes and operations of these inputs (D's and F's as one function
    each, split between their two kernels). Kernels A-E at the main
    path's shape (4096 chunks of 16 KiB; A's time also per dependent
-   step), D's code-table prologue and its pack timed apart; E on the
+   step; B's GB/s and its share of the bound; C also held and timed at
+   one 4 MiB block's 256 chunks, the main path's other launch, with ns
+   and cycles a step at both sizes, and its step as ptxas scheduled it
+   (sass_step) with its chain floor), D's code-table prologue and its
+   pack timed apart; E on the
    3840 of them that the card codes and, held and timed apart, on one
    4 MiB block's first 256 (the container's launch), each with ns a
    step, and E's step as ptxas scheduled it (sass_step) with its chain
@@ -61,10 +65,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    every kernel of the path launched (F once for the 16 ANS1 blocks,
    no compaction B and no chunk coded on the host, huff_host_chunks,
    for Huffman, and E once a block that has a chunk of more than one
-   symbol); then one run of each Huffman direction and of the ANS1
-   and FPAQ encodes under torch.profiler (device time by kernel, the
-   copies' sums by kind, the device's idle share) and under cProfile
-   (host self time);
+   symbol); then one run of each ANS0 and Huffman direction and of the
+   ANS1 and FPAQ encodes under torch.profiler (device time by kernel
+   and op, the copies' sums by kind, the device's idle share) and under
+   cProfile (host self time);
 6. round-trip 1 MiB of it through the port at every level 0-9;
 7. compress and decompress 16 MiB of it at level 5, at the default level
    (3, no -l) and at level 6 with 256 KiB blocks (64 FPAQ blocks of
@@ -73,7 +77,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    CLI's entry point (kanzi_tpu_torch.app.cli.main, in this process, the
    counters reset just before and read just after), on the card and
    then on the host path: the outputs byte-identical, every kernel of
-   the level's path launched, both rates printed side by side;
+   the level's path launched, both rates printed side by side; and the
+   default level's decompress 5 more times on each path, in turns, with
+   the medians;
 8. the device level-5 chain (kanzi_tpu_torch.parallel.pipeline): the
    corpus through compress_l5_mesh and decompress_l5_mesh at 4 MiB
    blocks, the counters reset before and read after each; require the
@@ -187,9 +193,11 @@ SMALL_SBRT = 16 << 10               # SBRT against its plain versions on the
 SMALL_SEGMENT = 1 << 10             # the forward cut into segments of this
 HOST_SBRT_BYTES = 256 << 10         # and on the CPU: each RANK input's
                                     # first bytes
-# E's step in the SASS: the length table's byte load (the symbol's
-# takes the same address plus an offset)
-E_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
+# C's and E's step in the SASS: the byte load at the step's index plus
+# the table's uniform base (C's residue table; E's length table, whose
+# symbol load adds an offset), one in each of C's 16 and E's 64
+# unrolled steps
+TABLE_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -319,8 +327,9 @@ def split_bound(parts: dict) -> dict:
 
 def profile(label: str, fn) -> None:
     """One run of fn under torch.profiler: device time by kernel and
-    copy, and the device's idle share of the run's wall time; then one
-    under cProfile: the host functions with the most self time."""
+    copy (the 12 largest), and the device's idle share of the run's
+    wall time; then one under cProfile: the host functions with the most
+    self time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -335,7 +344,7 @@ def profile(label: str, fn) -> None:
     busy = sum(dev.values()) / 1e6
     log(f"profile {label}: device busy {busy * 1000:.3f} ms of {wall:.4f} s "
         f"wall, idle share {1 - busy / wall:.4f}")
-    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  device {us / 1000:9.3f} ms  {name[:90]}")
     copies = {k: v for k, v in dev.items() if k.startswith("Memcpy")}
     log("  copies: " + (", ".join(
@@ -401,6 +410,10 @@ def check_ans0_kernels(chunks, dans) -> dict:
             lambda: dans.compact_rows_plain(vm, off16, total16), 3),
         library_ms=median_ms(lambda: torch.masked_select(vm, flags), 5),
         **bound("ans0_compact", nbytes(vm, off16, flat), vm.numel()))
+    r = res["ans0_compact"]
+    log(f"kernel B (ans0_compact) at {vm.shape[0]} rows: {r['ms']} ms, "
+        f"{nbytes(vm, off16, flat) / r['ms'] / 1e6:.1f} GB/s, "
+        f"{r['bound_ms'] / r['ms']:.1%} of its bound ({r['bound_by']})")
 
     # C: decode, of the compacted payload just produced
     f2s, fc = dans.decode_tables(freqs)
@@ -423,6 +436,40 @@ def check_ans0_kernels(chunks, dans) -> dict:
         fail("ans0_decode does not round-trip the encoded chunks")
     if not torch.equal(got[1][multi].long(), 2 * plen16[multi]):
         fail("ans0_decode consumed a different payload size")
+    # and at one 4 MiB block's launch: its 256 chunks and their payload
+    k = BLOCK // dans.CHUNK
+    one = (f2s[:k], fc[:k], states[:k],
+           flat[:int(2 * (off16[k - 1] + plen16[k - 1]))], off_bytes[:k])
+    got = dans.ans0_decode(*one)
+    ref = dans.ans0_decode_plain(*one)
+    res["ans0_decode"]["err"] = max(
+        res["ans0_decode"]["err"],
+        *(max_abs_err(g, r) for g, r in zip(got, ref)))
+    ms_one = median_ms(lambda: dans.ans0_decode(*one), 9)
+    res["ans0_decode"]["shape"] = (f"C={len(f2s)}; one block's {k}: "
+                                   f"{ms_one} ms")
+    # the SM clock during a queue of launches, and ptxas's step
+    ms = res["ans0_decode"]["ms"]
+    for _ in range(int(300 / ms)):
+        dans.ans0_decode(f2s, fc, states, flat, off_bytes)
+    time.sleep(0.1)
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    from kanzi_tpu_torch.ops import _build
+    n_ins, stall = sass_step(_build.library_path("ans0.cu"),
+                             "ans0_decode_kernel", TABLE_ANCHOR,
+                             unrolled=16)
+    steps = dans.STEPS
+    log(f"kernel C (ans0_decode): {len(f2s)} chunks {ms} ms, "
+        f"{1e6 * ms / steps:.2f} ns per step ({steps} a lane), "
+        f"{ms * mhz / steps * 1e3:.1f} cycles; one block's {k} chunks "
+        f"{ms_one} ms, {1e6 * ms_one / steps:.2f} ns per step, "
+        f"{ms_one * mhz / steps * 1e3:.1f} cycles, at the {mhz} MHz SM "
+        f"clock read during a queue of launches; ptxas's schedule "
+        f"(cuobjdump -sass): {n_ins} instructions and {stall} static "
+        f"stall cycles a step, a chain floor of {steps} x {stall} / "
+        f"{mhz} MHz = {steps * stall / mhz / 1e3:.4f} ms before the "
+        f"shared loads' waits")
     return res
 
 
@@ -580,7 +627,8 @@ def check_huffman_kernels(chunks, dhuff) -> tuple:
     torch.cuda.synchronize()
     from kanzi_tpu_torch.ops import _build
     n_ins, stall = sass_step(_build.library_path("huffman.cu"),
-                             "huff_decode_kernel", E_ANCHOR)
+                             "huff_decode_kernel", TABLE_ANCHOR,
+                             unrolled=64)
     steps = dhuff.FRAG
     log(f"kernel E (huff_decode): {len(tbl)} chunks {ms} ms, "
         f"{1e6 * ms / steps:.2f} ns per step ({steps} a fragment); one "
@@ -892,12 +940,15 @@ def sm_clock_mhz() -> int:
         check=True).stdout.split()[0])
 
 
-def sass_step(lib: Path, kernel: str, anchor: str) -> tuple:
+def sass_step(lib: Path, kernel: str, anchor: str,
+              unrolled: int | None = None) -> tuple:
     """(instructions, static stall cycles) of one step of `kernel` in the
     built library, read from cuobjdump -sass: each instruction's second
     64-bit word carries ptxas's stall count in bits 41-44. A step runs
     from one instruction that matches the regex `anchor` (one a step)
-    to the next; the median over the unrolled loop's steps. The waits on
+    to the next; the median over the unrolled loop's steps. Where the
+    kernel's one loop unrolls a known number of steps, `unrolled`, it
+    fails unless the anchor occurs exactly that often. The waits on
     variable-latency results (shuffles, shared-memory loads) are not in
     the count."""
     from kanzi_tpu_torch.ops import _build
@@ -917,6 +968,9 @@ def sass_step(lib: Path, kernel: str, anchor: str) -> tuple:
     at = [k for k, (op, _) in enumerate(ins) if re.match(anchor, op)]
     if len(at) < 2:
         fail(f"sass_step: no two {anchor} in {kernel}")
+    if unrolled is not None and len(at) != unrolled:
+        fail(f"sass_step: {len(at)} {anchor} in {kernel}, not one a "
+             f"step of its {unrolled} unrolled steps")
     steps = [(b - a, sum(st for _, st in ins[a:b]))
              for a, b in zip(at, at[1:])]
     return (statistics.median(n for n, _ in steps),
@@ -1188,7 +1242,7 @@ def run(workers: dict, mode: str) -> None:
     corpus = make_corpus(N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
     dev = torch.device("cuda", 0)
-    if mode != "containers":
+    if mode in ("full", "kernels"):
         rank_in = l5_rank_inputs(corpus, pp, dev)
     if mode == "full":
         WORK.mkdir(parents=True, exist_ok=True)
@@ -1292,6 +1346,10 @@ def run(workers: dict, mode: str) -> None:
             f"thread): encode {rate(t_henc)}, decode {rate(t_hdec)}")
         if blob != host:
             fail(f"NONE/{entropy} output differs from the host path's")
+    profile("NONE/ANS0 encode", lambda: kanzi_tpu_torch.compress_bytes(
+        corpus, "NONE", "ANS0", block_size=BLOCK))
+    profile("NONE/ANS0 decode",
+            lambda: kanzi_tpu_torch.decompress_bytes(blobs["ANS0"]))
     profile("NONE/HUFFMAN encode", lambda: kanzi_tpu_torch.compress_bytes(
         corpus, "NONE", "HUFFMAN", block_size=BLOCK))
     profile("NONE/HUFFMAN decode",
@@ -1379,6 +1437,25 @@ def run(workers: dict, mode: str) -> None:
             f"compress {mib['card'][0]:.1f} MiB/s (host path "
             f"{mib['host'][0]:.1f}), decompress {mib['card'][1]:.1f} MiB/s "
             f"(host path {mib['host'][1]:.1f})")
+        if level == 3:
+            # the default level's decompress, card and host path in turns
+            secs = {"card": [], "host": []}
+            for _ in range(5):
+                for where in ("card", "host"):
+                    if where == "host":
+                        ops.disable()
+                    try:
+                        secs[where].append(cli("-d", "-i", knz, "-o", dec))
+                    finally:
+                        ops.enable()
+                    if dec.read_bytes() != data:
+                        fail(f"level-3 CLI decompress ({where}) differs "
+                             "from the input")
+            med = {k: len(data) / MiB / statistics.median(v)
+                   for k, v in secs.items()}
+            log(f"level 3 CLI decompress, medians of 5 runs each in turns: "
+                f"card {med['card']:.1f} MiB/s, host path "
+                f"{med['host']:.1f} MiB/s ({med['card'] / med['host']:.2f}x)")
 
     # 8. the device level-5 chain, and the fused chain
     check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate)

@@ -60,6 +60,35 @@ def _host_tensor(a, dtype) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
+def _to_device(a, dtype, device: torch.device) -> torch.Tensor:
+    """numpy -> tensor on ``device``; to a card through a pinned host
+    buffer (the host's one copy of ``a``), without blocking."""
+    if device.type != "cuda":
+        return _host_tensor(a, dtype).to(device)
+    a = np.asarray(a)
+    staged = torch.empty(a.shape, pin_memory=True,
+                         dtype=torch.from_numpy(np.empty(0, dtype)).dtype)
+    np.copyto(staged.numpy(), a, casting="unsafe")
+    return staged.to(device, non_blocking=True)
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """x on the card -> a pinned host tensor, copied without blocking:
+    valid after the stream's next synchronisation."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x, non_blocking=True)
+
+
+def _to_numpy(device: torch.device, *ts) -> tuple:
+    """Tensors on ``device`` -> numpy arrays; from a card through pinned
+    host buffers and one wait."""
+    if device.type != "cuda":
+        return tuple(t.cpu().numpy() for t in ts)
+    host = [_to_host(t) for t in ts]
+    torch.cuda.current_stream(device).synchronize()
+    return tuple(h.numpy() for h in host)
+
+
 def _u32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 tensor with the same bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
@@ -257,12 +286,16 @@ def compact_rows(vm, off16, total16: int):
     offsets in u16 units, the exclusive cumsum of the rows' flag counts;
     total16 the sum of those counts. Returns the flat payload
     [2 * total16] uint8: row r's flagged u16s, little-endian, at
-    off16[r] in order."""
+    off16[r] in order; a u16 whose place falls outside [0, total16) is
+    dropped. The kernel needs vm 16-byte aligned, as a fresh allocation
+    is."""
     c, dev = vm.shape[0], vm.device
     _check("vm", vm, torch.int32, (c, CHUNK), dev)
     _check("off16", off16, torch.int64, (c,), dev)
     if _on_cpu("ans0_compact", dev):
         return compact_rows_plain(vm, off16, total16)
+    if vm.data_ptr() % 16:
+        raise ValueError("vm: must be 16-byte aligned")
     out = torch.empty(2 * total16, dtype=torch.uint8, device=dev)
     _launch("ans0_compact", dev, vm, off16, c, total16, out)
     return out
@@ -385,9 +418,11 @@ def encode_chunks(chunks: torch.Tensor):
 
 def encode_chunks_np(chunks: np.ndarray, device):
     """numpy-facing encode_chunks: chunks [C, CHUNK] uint8 go to
-    ``device`` and only the headers and the compact payload come back."""
-    t = _host_tensor(chunks, np.uint8).to(device)
-    return tuple(x.cpu().numpy() for x in encode_chunks(t))
+    ``device`` and only the headers and the compact payload come back,
+    on a card both ways through pinned host buffers."""
+    device = torch.device(device)
+    return _to_numpy(device, *encode_chunks(
+        _to_device(chunks, np.uint8, device)))
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +477,9 @@ def ans0_decode(f2s, fc, states, pay, off_bytes):
     [C, 4] int32 (u32 bits); pay [N] uint8, every chunk's payload back to
     back; off_bytes [C] int64 start of each chunk's payload in pay.
     Returns (symbols [C, CHUNK] uint8, consumed payload bytes [C]
-    int32)."""
+    int32). A byte of pay before 0 or at or past its end reads 0. The
+    kernel needs f2s and fc 16-byte aligned, as a fresh allocation is;
+    pay may start anywhere."""
     c, dev = f2s.shape[0], f2s.device
     _check("f2s", f2s, torch.uint8, (c, SCALE), dev)
     _check("fc", fc, torch.int32, (c, 256), dev)
@@ -451,6 +488,9 @@ def ans0_decode(f2s, fc, states, pay, off_bytes):
     _check("off_bytes", off_bytes, torch.int64, (c,), dev)
     if _on_cpu("ans0_decode", dev):
         return ans0_decode_plain(f2s, fc, states, pay, off_bytes)
+    for name, t in (("f2s", f2s), ("fc", fc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
     out = torch.empty((c, CHUNK), dtype=torch.uint8, device=dev)
     consumed = torch.empty(c, dtype=torch.int32, device=dev)
     _launch("ans0_decode", dev, f2s, fc, states, pay, pay.numel(),
@@ -463,12 +503,12 @@ def ans0_decode_flat(freqs: np.ndarray, states: np.ndarray,
     """freqs [C, 256]; states [C, 4] uint32; flat_pay [total] uint8 (all
     chunks' payloads back to back); off_bytes [C] byte offsets. Returns
     (chunks [C, CHUNK] uint8, consumed bytes [C]) as numpy arrays. The
-    contract of kanzi_tpu.ops.ans.ans0_decode_flat."""
-    def dev_tensor(a, dtype):
-        return _host_tensor(a, dtype).to(device)
-
-    f2s, fc = decode_tables(dev_tensor(freqs, np.int64))
-    st = dev_tensor(np.asarray(states, np.uint32).view(np.int32), np.int32)
-    out, consumed = ans0_decode(f2s, fc, st, dev_tensor(flat_pay, np.uint8),
-                                dev_tensor(off_bytes, np.int64))
-    return out.cpu().numpy(), consumed.cpu().numpy()
+    contract of kanzi_tpu.ops.ans.ans0_decode_flat. On a card the inputs
+    go up and the outputs come down through pinned host buffers."""
+    device = torch.device(device)
+    f2s, fc = decode_tables(_to_device(freqs, np.int64, device))
+    st = _to_device(np.asarray(states, np.uint32).view(np.int32), np.int32,
+                    device)
+    return _to_numpy(device, *ans0_decode(
+        f2s, fc, st, _to_device(flat_pay, np.uint8, device),
+        _to_device(off_bytes, np.int64, device)))

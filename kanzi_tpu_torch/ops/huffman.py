@@ -39,8 +39,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kanzi_tpu_torch.ops.ans import (_U32, _bit_length, _check, _host_tensor,
-                                     _launch, _on_cpu, _u32_bits, histogram,
+from kanzi_tpu_torch.ops.ans import (_U32, _bit_length, _check, _launch,
+                                     _on_cpu, _to_device, _to_host,
+                                     _to_numpy, _u32_bits, histogram,
                                      pack_slots)
 
 CHUNK = 16384
@@ -455,13 +456,6 @@ def encode_chunks(chunks: torch.Tensor):
     return hdr, hdr_bits, ok, m, flat, npairs, acc, nb, frag_bits
 
 
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    """x on the card -> a pinned host tensor, copied without blocking:
-    valid after the stream's next synchronisation."""
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    return out.copy_(x, non_blocking=True)
-
-
 def encode_chunks_np(chunks: np.ndarray, device):
     """numpy-facing encode_chunks: chunks [C, CHUNK] uint8 go to
     ``device``; the outputs come back with kanzi_tpu's dtypes, flat cut
@@ -469,15 +463,11 @@ def encode_chunks_np(chunks: np.ndarray, device):
     buffers: the chunks up without blocking, every output but flat down
     before the one wait that sizes flat from npairs, then flat."""
     device = torch.device(device)
-    host = _host_tensor(chunks, np.uint8)
+    out = encode_chunks(_to_device(chunks, np.uint8, device))
     if device.type != "cuda":
-        out = encode_chunks(host.to(device))
         n = 2 * int(out[5].long().sum())
         out = [x.cpu() for x in out[:4] + (out[4][:n],) + out[5:]]
     else:
-        staged = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
-        staged.copy_(host)
-        out = encode_chunks(staged.to(device, non_blocking=True))
         small = [_to_host(x) for x in out[:4] + out[5:]]
         torch.cuda.current_stream(device).synchronize()
         n = 2 * int(small[4].long().sum())
@@ -567,15 +557,14 @@ def huffman_decode_chunks(codes: np.ndarray, sizes: np.ndarray,
     pay [N] uint8 the byte-aligned fragments back to back, bounds
     [4C + 1] their offsets. Returns [C, CHUNK] uint8 decoded chunks as
     numpy. The contract of kanzi_tpu.ops.huffman.huffman_decode_chunks
-    with the fragments as one flat stream."""
-    def dev_tensor(a, dtype):
-        return _host_tensor(a, dtype).to(device)
-
-    tbl = decode_table(dev_tensor(codes, np.int64),
-                       dev_tensor(sizes, np.int64))
-    out = huff_decode(tbl, dev_tensor(pay, np.uint8),
-                      dev_tensor(bounds, np.int64))
-    return out.cpu().numpy()
+    with the fragments as one flat stream. On a card the inputs go up and
+    the chunks come down through pinned host buffers."""
+    device = torch.device(device)
+    tbl = decode_table(_to_device(codes, np.int64, device),
+                       _to_device(sizes, np.int64, device))
+    return _to_numpy(device, huff_decode(
+        tbl, _to_device(pay, np.uint8, device),
+        _to_device(bounds, np.int64, device)))[0]
 
 
 def flat_fragments(frag_pay: np.ndarray, frag_bytes: np.ndarray):

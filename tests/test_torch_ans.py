@@ -5,8 +5,8 @@ every tolerance here is exact equality.
 
 On the CPU the kernel wrappers run their plain PyTorch versions; the
 kernels themselves are held against those versions by the needs_cuda
-test at the end, which skips without a card. The JAX package comes in
-through the ``dans`` fixture, so that the needs_cuda test also runs on a
+tests at the end, which skip without a card. The JAX package comes in
+through the ``dans`` fixture, so that the needs_cuda tests also run on a
 machine without JAX (KANZI_TEST_TPU=1 keeps conftest.py from importing
 it):
 
@@ -201,6 +201,43 @@ def test_decode_reads_zero_past_the_payload():
     assert not torch.equal(out[2], torch.from_numpy(chunks[2]))
 
 
+@pytest.mark.parametrize("case", ["offset-0", "offset-2", "offset-6",
+                                  "offset-14", "cut"])
+def test_decode_at_payload_offsets_matches_jax(dans, case):
+    """The port's ans0_decode over one flat payload stream placed behind
+    k filler bytes, or cut 100 bytes into chunk 2's payload, against
+    kanzi_tpu's decode_chunks_np over the same bytes as padded rows (0
+    past the cut): symbols and consumed bytes of every coded chunk."""
+    chunks = _chunk_corpus()
+    freqs, states, vm, nren = _scan(chunks)
+    plen16 = nren.long().sum(1)
+    off16 = plen16.cumsum(0) - plen16
+    flat = tans.compact_rows(vm, off16, int(plen16.sum())).numpy()
+    k = 0 if case == "cut" else int(case.split("-")[1])
+    if case == "cut":
+        flat = flat[:2 * int(off16[2]) + 100]
+    rng = np.random.default_rng(k)
+    pay = np.concatenate([rng.integers(0, 256, k).astype(np.uint8), flat])
+    f2s, fc = tans.decode_tables(freqs)
+    out, consumed = tans.ans0_decode(f2s, fc, states, torch.from_numpy(pay),
+                                     k + 2 * off16)
+    rows = np.zeros((len(chunks), dans.PAYLOAD_MAX + 2), np.uint8)
+    for i in range(len(chunks)):
+        part = flat[2 * int(off16[i]):2 * int(off16[i] + plen16[i])]
+        rows[i, :len(part)] = part
+    ref_out, ref_cur = dans.decode_chunks_np(
+        freqs.numpy().astype(np.int32), states.numpy().astype(np.uint32),
+        rows)
+    multi = ((freqs > 0).sum(1) > 1).numpy()
+    assert np.array_equal(out.numpy()[multi], ref_out[multi])
+    assert np.array_equal(consumed.numpy()[multi], ref_cur[multi])
+    if case == "cut":
+        assert np.array_equal(out.numpy()[:2], chunks[:2])
+        assert not np.array_equal(out.numpy()[2], chunks[2])
+    else:
+        assert np.array_equal(out.numpy()[multi], chunks[multi])
+
+
 def _compact_reference(vm, off16, total16):
     out = np.zeros(2 * total16, np.uint8)
     for r in range(vm.shape[0]):
@@ -283,3 +320,134 @@ def test_kernels_match_plain_on_cuda(cuda_device, n_chunks):
         assert torch.equal(g, r)
     multi = (freqs > 0).sum(1) > 1
     assert torch.equal(got[0][multi], chunks[multi])
+
+
+def _card_encode(host, device):
+    """(freqs, states, flat, off16) of host [C, CHUNK] coded by kernels A
+    and B on the card."""
+    chunks = torch.from_numpy(host).to(device)
+    freqs = tans.normalize(tans.histogram(chunks))
+    packed, inv = tans.encode_tables(freqs)
+    states, vm, nren = tans.ans0_encode_scan(chunks, packed, inv)
+    plen16 = nren.long().sum(1)
+    off16 = plen16.cumsum(0) - plen16
+    return freqs, states, tans.compact_rows(vm, off16, int(plen16.sum())), \
+        off16
+
+
+def _decode_case(case, device):
+    """(f2s, fc, states, pay, off_bytes, chunks) of one needs_cuda case of
+    kernel C; chunks [C, CHUNK] is what the decode must give back for
+    the chunks of more than one symbol, None where the payload is cut."""
+    rng = np.random.default_rng(13)
+    if case.startswith("chunks-"):
+        n = int(case.split("-")[1])
+        host = rng.integers(0, 256, (n, CHUNK)).astype(np.uint8)
+        host[n // 3:] = rng.geometric(0.05, (n - n // 3, CHUNK)).astype(
+            np.uint8)
+        host[:min(n, 8)] = _chunk_corpus()[:n]
+    elif case == "all-random":
+        host = rng.integers(0, 256, (64, CHUNK)).astype(np.uint8)
+    elif case == "single-symbol":
+        host = np.repeat(_chunk_corpus(), 2, axis=0)
+        host[1::4] = 0x5A               # one symbol: no payload
+        host[2::8] = 0
+    else:
+        host = _chunk_corpus()
+        if case == "end-of-pay":        # the most renorms last
+            host = host[[3, 1, 2, 4, 5, 6, 7, 0]]
+    freqs, states, flat, off16 = _card_encode(host, device)
+    pay, off = flat, 2 * off16
+    chunks = host
+    if case.startswith("offset-") or case == "misaligned":
+        k = 3 if case == "misaligned" else int(case.split("-")[1])
+        filler = torch.from_numpy(rng.integers(0, 256, 16 + k).astype(
+            np.uint8)).to(device)
+        pay = torch.cat([filler, flat])
+        if case == "misaligned":        # pay itself starts at 3 mod 16
+            pay = pay[3:]
+            off = off + 16
+        else:
+            pay = pay[16:]
+            off = off + k
+    elif case == "cut":
+        pay = flat[:int(off[5]) + 300].clone()
+        chunks = None
+    f2s, fc = tans.decode_tables(freqs)
+    return f2s, fc, states, pay, off, chunks
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", [f"offset-{k}" for k in range(16)] + [
+    "misaligned", "cut", "end-of-pay", "single-symbol", "all-random",
+    "chunks-13", "chunks-256", "chunks-4096", "chunks-8192"])
+def test_decode_kernel_matches_plain_on_cuda(cuda_device, case):
+    """Kernel C against its plain version on the card: payloads behind
+    0-15 filler bytes (every start mod 16) and a pay tensor that itself
+    starts at 3 mod 16, a payload cut short (0 past it), the last
+    chunk's payload ending at pay's end, single-symbol chunks among coded
+    ones, random chunks (the most renorms), 13 chunks (a ragged last
+    block) and 256, 4096 and 8192 chunks (more than one wave); the coded
+    cases give their chunks back."""
+    f2s, fc, states, pay, off, chunks = _decode_case(case, cuda_device)
+    got = tans.ans0_decode(f2s, fc, states, pay, off)
+    ref = tans.ans0_decode_plain(f2s, fc, states, pay, off)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if chunks is not None:
+        multi = ((torch.from_numpy(chunks) != torch.from_numpy(
+            chunks[:, :1])).any(1)).to(cuda_device)
+        assert torch.equal(got[0][multi],
+                           torch.from_numpy(chunks).to(cuda_device)[multi])
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("rows", [1, 13, 4096])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 0.5, 1.0])
+def test_compact_kernel_matches_plain_on_cuda(cuda_device, rows, density):
+    """Kernel B against its plain version on the card: flag densities
+    from none to all with junk in the unflagged slots and above the
+    flag, at 1, 13 and 4096 rows; total16 whole and cut short (the u16s
+    past it dropped)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        rows * 1000 + int(1000 * density))
+    flags = torch.rand((rows, CHUNK), generator=gen,
+                       device=cuda_device) < density
+    vals = torch.randint(0, 1 << 16, (rows, CHUNK), generator=gen,
+                         device=cuda_device)
+    junk = torch.randint(0, 1 << 15, (rows, CHUNK), generator=gen,
+                         device=cuda_device) << 17
+    vm = ((flags.long() << 16) | vals | junk).to(torch.int32)
+    counts = flags.long().sum(1)
+    off16 = counts.cumsum(0) - counts
+    total16 = int(counts.sum())
+    for cut in (total16, total16 // 2, max(total16 - 1, 0)):
+        got = tans.compact_rows(vm, off16, cut)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tans.compact_rows_plain(vm, off16, cut))
+
+
+@pytest.mark.needs_cuda
+def test_compact_kernel_takes_order1_rows_on_cuda(cuda_device):
+    """Kernel B on the rows of the order-1 chain F2 (ops.ans1), which
+    ans1_encode_batch compacts: the same bytes as the plain version."""
+    from kanzi_tpu_torch.ops import ans1 as t1
+    from kanzi_tpu_torch.utils import native
+    rng = np.random.default_rng(4)
+    host = np.stack([rng.integers(0, 256, CHUNK).astype(np.uint8),
+                     rng.choice(np.arange(6, dtype=np.uint8), CHUNK),
+                     np.frombuffer((b"order one " * 2000)[:CHUNK], np.uint8),
+                     rng.geometric(0.1, CHUNK).astype(np.uint8)])
+    freqs = np.stack([native.ans1_norm(native.ans1_hist(ch)) for ch in host])
+    _, vm = t1.ans1_encode_scan(
+        torch.from_numpy(host).to(cuda_device),
+        t1.encode_table(torch.from_numpy(freqs).to(cuda_device)),
+        t1.INV_LUT.to(cuda_device))
+    rows = vm.view(-1, CHUNK)
+    plen16 = ((rows >> 16) & 1).sum(1)
+    off16 = plen16.cumsum(0) - plen16
+    got = tans.compact_rows(rows, off16, int(plen16.sum()))
+    torch.cuda.synchronize()
+    assert torch.equal(got, tans.compact_rows_plain(rows, off16,
+                                                    int(plen16.sum())))
