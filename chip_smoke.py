@@ -37,19 +37,28 @@ Phases (each raises on failure, so any failure exits non-zero):
    64 KiB; G: 64 streams of 8 KiB with 2 KiB FPAQ chunks); against
    their plain versions run on the
    host's CPU, in worker processes of this script started after phase 3
-   and read before phase 9, at the container's launch shape of F
+   and read before phase 10, at the container's launch shape of F
    (one 4 MiB chunk) and at the main path's 16 streams and 4 MiB FPAQ
    chunks for G, cut to their first 256 KiB (a plain run over 4 MiB is 32M
    bit steps, about an hour); and they are timed at the main path's
    shape (the corpus as 16 chunks, resp. 16 streams, of 4 MiB), where
    their output is held against the port's native host coders
    (native.ans1_enc_block, the native FPAQ coder, which is timed too:
-   the crossover stream count of the container's FPAQ gate). The SBRT
+   the crossover stream count of the container's FPAQ gate). H (the
+   FPAQ decode, fpaq_decode) against its plain version on the card at
+   G's SMALL_FPAQ streams (bytes, words consumed and end state), and,
+   in a worker started in this phase, on the host's CPU at the main
+   path's 16 streams of 4 MiB that G encodes, each cut to its first 256
+   KiB on the same payload (bytes, words consumed and the state there);
+   then timed at those whole streams, its output held against the
+   input, with ns a bit step, its step as ptxas scheduled it
+   (sass_step) and its chain floor, and the native host decoder timed
+   on the same streams. The SBRT
    kernels (the forward's sbrt_occ and sbrt_entry, whose entry states
    are held against segment_states_plain, and sbrt_fwd; the inverse's
    sbrt_inv) the same way: against their plain versions on the card at
    16 blocks of 16 KiB with ragged lengths and the forward cut into 1
-   KiB segments, in all three modes, both ways; in a third worker at
+   KiB segments, in all three modes, both ways; in a worker at
    the level-5 chain's RANK input (the corpus's 16 blocks of 4 MiB
    through the device BWT and its header) cut to 256 KiB a block, RANK
    both ways; and timed at that whole input, each kernel apart, the
@@ -92,7 +101,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    one torch.profiler / cProfile breakdown of each direction; then the
    fused chain of kanzi_tpu's bench (pipeline.l5_chain: BWT, RANK, ZRLT
    and the ANS0 encode of 16 blocks of 1 MiB on the card), in MiB/s;
-9. require that neither jax nor kanzi_tpu was imported.
+9. the level-2, 3 and 6 mesh chains (compress_l2_mesh,
+   compress_l3_mesh, compress_l6_mesh and their decompress_*_mesh):
+   the corpus at 4 MiB blocks and back, the counters reset before and
+   read after each call; require the container byte-identical with the
+   host writer's, the mesh decode and the host reader to return the
+   input, D and E launched for levels 2 and 3 (E once, every full chunk
+   of the file in one launch, and no chunk coded on the host), G and H
+   for level 6 (H once) with all 16 blocks decoded on the card
+   (l6_decode_device_blocks); both rates beside the host path's,
+   medians of 3 runs each in turns, and one torch.profiler / cProfile
+   breakdown each of the level-2 and level-6 decodes;
+10. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, its largest difference from the plain version, its time,
@@ -101,8 +121,9 @@ the plain version's, its bound and the library call's; the last line is
 non-zero before printing either. Scratch files go to build/chip_smoke/.
 (``chip_smoke.py --plain FILE`` is the worker mode of phase 4.
 ``chip_smoke.py --kernels`` runs phases 1-3 and phase 4's kernels A-E,
-G and SBRT only (G against its plain version on the card at SMALL_FPAQ
-and timed at 16 x 4 MiB against the native coder, with the crossover;
+G, H and SBRT only (G and H against their plain versions on the card
+at SMALL_FPAQ and timed at 16 x 4 MiB against the native coders, with
+G's crossover;
 SBRT's small checks and its timed RANK input; no plain workers), prints
 their lines and no JSON: a short check of those kernels while one of
 them is redesigned. ``chip_smoke.py --containers``
@@ -152,7 +173,7 @@ INT32_OPS_PER_S = 67e12 / 4
 OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
        "huff_code_tables": 4, "huff_pack": 12, "huff_decode": 8,
        "ans1_gather": 11, "ans1_chain": 11, "fpaq_encode": 8 * 24,
-       "sbrt": 10}
+       "fpaq_decode": 8 * 24, "sbrt": 10}
 # D's table build, per chunk: a sort of its 256 byte counts (256 x 8
 # compare-exchanges of 3 operations); per symbol slot its canonical
 # code (count its length, its rank among the symbols of that length, the
@@ -177,6 +198,8 @@ REPLACES = {
     "ans1_gather": ("ans1.cu", "kanzi_tpu/ops/ans1.py:142"),
     "ans1_chain": ("ans1.cu", "kanzi_tpu/ops/ans1.py:221"),
     "fpaq_encode": ("fpaq.cu", "kanzi_tpu/ops/fpaq.py:286"),
+    # H: XLA in kanzi_tpu, no Pallas kernel
+    "fpaq_decode": ("fpaq_dec.cu", "kanzi_tpu/ops/fpaq_jnp.py:216"),
     # SBRT: the forward's three kernels (entry states, then segments)
     # and the inverse
     "sbrt_occ": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
@@ -185,7 +208,7 @@ REPLACES = {
     "sbrt_inv": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
 }
 SMALL_ANS1 = (16, 64 << 10)         # F1, F2 against their plain versions
-SMALL_FPAQ = (64, 8 << 10, 2048)    # G: streams, bytes, FPAQ chunk bytes
+SMALL_FPAQ = (64, 8 << 10, 2048)    # G, H: streams, bytes, FPAQ chunk bytes
 HOST_FPAQ_BYTES = 256 << 10         # G's plain run on the CPU: each of the
                                     # 16 main-path streams' first bytes
 SMALL_SBRT = 16 << 10               # SBRT against its plain versions on the
@@ -198,6 +221,10 @@ HOST_SBRT_BYTES = 256 << 10         # and on the CPU: each RANK input's
 # symbol load adds an offset), one in each of C's 16 and E's 64
 # unrolled steps
 TABLE_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
+# H's step: its load of the bit's probability, the kernel's only 16-bit
+# shared load, one in each of the 8 unrolled bit steps of a byte (a step
+# is counted without its flush, whose branch it takes)
+FPAQ_DEC_ANCHOR = r"LDS\.U16 "
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -667,6 +694,9 @@ def plain_worker(path: Path) -> None:
     elif a["kind"] == "sbrt":
         fwd = dsb.sbrt_plain(a["blocks"], a["lens"], dsb.MODE_RANK, False)
         out = (fwd, dsb.sbrt_plain(fwd, a["lens"], dsb.MODE_RANK, True))
+    elif a["kind"] == "fpaq_decode":
+        out = dfp.fpaq_decode_plain(*a["args"], a["chunk"],
+                                    *dfp.fpaq_init_state(len(a["args"][5])))
     else:
         out = dfp.fpaq_encode_plain(a["streams"], a["lens"], a["chunk_win"],
                                     a["cap"])
@@ -695,21 +725,26 @@ def start_plain_workers(corpus, dans1, dfp, native, rank_in) -> dict:
             "blocks": rank_in[:, :HOST_SBRT_BYTES].cpu().contiguous(),
             "lens": torch.full((len(rank_in),), HOST_SBRT_BYTES,
                                dtype=torch.int64)}
-    workers = {}
-    for a in (f_in, g_in, s_in):
-        path = WORK / f"plain_{a['kind']}.pt"
-        torch.save(a, path)
-        err = open(path.with_suffix(".err"), "w")
-        workers[a["kind"]] = (a, subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--plain",
-             str(path)], stdout=subprocess.DEVNULL, stderr=err))
-        err.close()
-    return workers
+    return {a["kind"]: start_worker(a) for a in (f_in, g_in, s_in)}
+
+
+def start_worker(a: dict) -> tuple:
+    """Save one plain version's inputs and start a worker process of
+    this script on them. Returns (inputs, process)."""
+    path = WORK / f"plain_{a['kind']}.pt"
+    torch.save(a, path)
+    err = open(path.with_suffix(".err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--plain",
+         str(path)], stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    return a, proc
 
 
 # the kernels that each worker's plain version checks
 WORKER_KERNELS = {"ans1_encode_scan": ("ans1_gather", "ans1_chain"),
                   "fpaq_encode": ("fpaq_encode",),
+                  "fpaq_decode": ("fpaq_decode",),
                   "sbrt": ("sbrt_occ", "sbrt_entry", "sbrt_fwd", "sbrt_inv")}
 
 
@@ -724,7 +759,7 @@ def finish_plain_workers(workers, full_got, kres) -> None:
                  f"{path.with_suffix('.err').read_text()[-2000:]}")
         res = torch.load(path.with_suffix(".out"))
         err = max(max_abs_err(g, r) for g, r in zip(full_got[k], res["out"]))
-        shape = "x".join(map(str, next(
+        shape = a.get("shape") or "x".join(map(str, next(
             a[key] for key in ("chunks", "streams", "blocks")
             if key in a).shape))
         log(f"kernel {k}: max_abs_err {err} against its plain version on "
@@ -881,6 +916,113 @@ def check_fpaq_kernel(corpus, dfp, native, dev, g_in, full_got) -> dict:
         **bound("fpaq_encode", moved, streams.numel()))}
 
 
+def fpaq_args(enc, lens, chunk: int, dfp, dev) -> list:
+    """G's outputs (fpaq_encode_batch: bufs, low56, window words and
+    lows) as H's flat arguments on dev: each chunk's record as the
+    decoder reads it (its words and its boundary low, 7 bytes, after the
+    7 that prime its current), flat (ops.fpaq.flat_records), and lens."""
+    bufs, low56, ww, wl = enc
+    wpc = chunk // dfp.WIN_B
+    frames = []
+    for i, buf in enumerate(bufs):
+        ends = np.cumsum(ww[i])
+        nch = -(-int(lens[i]) // chunk)
+        chunks, pos = [], 0
+        for k in range(nch):
+            w_end = min((k + 1) * wpc, ww.shape[1])
+            low = int(wl[i, w_end - 1]) if k + 1 < nch else low56[i]
+            words = buf[4 * pos:4 * int(ends[w_end - 1])]
+            pos = int(ends[w_end - 1])
+            tail = words + low.to_bytes(7, "big")
+            chunks.append((int.from_bytes(tail[:7], "big"), tail[7:]))
+        frames.append(chunks)
+    return [torch.from_numpy(a).to(dev) for a in (
+        *dfp.flat_records(frames), np.asarray(lens, np.int64))]
+
+
+def check_fpaq_decode_kernel(corpus, dfp, native, dev, workers,
+                             full_got) -> dict:
+    """H against its plain version on the card at SMALL_FPAQ (G's
+    streams, framed as the decoder reads them; bytes, words consumed and
+    end state), then timed at the main path's shape: the corpus as 16
+    streams of 4 MiB, one FPAQ chunk each, encoded by G, whose output
+    must be the input; the native host decoder timed on the same
+    streams. With workers (not with --kernels), a worker holds H's
+    bytes, words consumed and state after each main-path stream's first
+    HOST_FPAQ_BYTES against the plain version's on the host's CPU, on
+    the same payload."""
+    from kanzi_tpu_torch.entropy.native_bin import KIND_FPAQ, _new_handle
+    n, size, chunk = SMALL_FPAQ
+    host = np.frombuffer(corpus[:n * size], np.uint8).reshape(n, size)
+    lens = np.full(n, size)
+    args = fpaq_args(dfp.fpaq_encode_batch(host, lens, chunk, dev), lens,
+                     chunk, dfp, dev)
+    got = dfp.fpaq_decode(*args, chunk)
+    ref, plain_ms = once_ms(lambda: dfp.fpaq_decode_plain(
+        *args, chunk, *dfp.fpaq_init_state(n, dev)))
+    err = max(max_abs_err(g, r) for g, r in zip(
+        (got[0], got[1], *got[2]), ref))
+    if not np.array_equal(got[0].cpu().numpy(), host):
+        fail("fpaq_decode does not return G's input at SMALL_FPAQ")
+
+    host = np.frombuffer(corpus, np.uint8).reshape(-1, dfp.CHUNK_B)
+    lens = np.full(len(host), dfp.CHUNK_B)
+    enc = dfp.fpaq_encode_batch(host, lens, dfp.CHUNK_B, dev)
+    args = fpaq_args(enc, lens, dfp.CHUNK_B, dfp, dev)
+    if workers is not None:
+        cut = args[:5] + [args[5].clamp(max=HOST_FPAQ_BYTES)]
+        workers["fpaq_decode"] = start_worker({
+            "kind": "fpaq_decode", "args": [a.cpu() for a in cut],
+            "chunk": dfp.CHUNK_B,
+            "shape": f"{len(host)}x{HOST_FPAQ_BYTES}, 4 MiB chunks"})
+        out, consumed, state = dfp.fpaq_decode(*cut, dfp.CHUNK_B)
+        full_got["fpaq_decode"] = [t.cpu() for t in (out, consumed, *state)]
+        del cut, out, consumed, state
+    ms = median_ms(lambda: dfp.fpaq_decode(*args, dfp.CHUNK_B), 3)
+    out, consumed, _ = dfp.fpaq_decode(*args, dfp.CHUNK_B)
+    time.sleep(ms / 4000)
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    if not np.array_equal(out.cpu().numpy(), host):
+        fail("fpaq_decode does not return the 16 streams G encoded")
+    host_s = 0.0
+    for i, row in enumerate(host):
+        tail = enc[0][i] + enc[1][i].to_bytes(7, "big")
+        payload = np.frombuffer(tail[7:] + bytes(8), np.uint8)
+        h = _new_handle(KIND_FPAQ, None)
+        dec = np.empty(dfp.CHUNK_B, np.uint8)
+        t0 = time.perf_counter()
+        rc = native.bincoder_dec_chunk(h, payload, len(tail) - 7,
+                                       int.from_bytes(tail[:7], "big"), dec)
+        host_s += time.perf_counter() - t0
+        native.bincoder_free(h)
+        if rc != 0 or not np.array_equal(dec, row):
+            fail(f"fpaq: the native decoder does not return stream {i}")
+    from kanzi_tpu_torch.ops import _build
+    n_ins, stall = sass_step(_build.library_path("fpaq_dec.cu"),
+                             "fpaq_decode_kernel", FPAQ_DEC_ANCHOR,
+                             unrolled=8, taken=True)
+    steps = 8 * dfp.CHUNK_B
+    log(f"kernel fpaq_decode (H): {len(host)} streams of 4 MiB, {steps} "
+        f"bit steps each: kernel_ms {ms}, {1e6 * ms / steps:.2f} ns per "
+        f"bit step ({ms * mhz / steps * 1e3:.1f} cycles at the {mhz} MHz "
+        f"SM clock read during a launch); ptxas's schedule (cuobjdump "
+        f"-sass): {n_ins} instructions and {stall} static stall cycles a "
+        f"step without a flush (the branch past it taken), a chain floor "
+        f"of {steps} x {stall} / {mhz} MHz = "
+        f"{steps * stall / mhz / 1e3:.1f} ms before the table loads' "
+        f"waits; plain_ms {plain_ms} at {n} streams of {size >> 10} KiB "
+        f"with {chunk >> 10} KiB chunks (once); output == the input; "
+        f"native decoder {1000 * host_s / len(host):.3f} ms a stream on "
+        f"the host, {1000 * host_s:.1f} ms for the {len(host)}")
+    # every payload word read once, the chunk records, the state in and
+    # out, the output written once
+    moved = nbytes(*args, out, consumed) + 2 * len(host) * (16 + 4 * 1024)
+    return {"fpaq_decode": dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound("fpaq_decode", moved, out.numel()))}
+
+
 def l5_rank_inputs(corpus, pp, dev):
     """The RANK input of the level-5 chain's blocks: the corpus's 4 MiB
     blocks through the device BWT and its block-codec header, [16, 4 MiB
@@ -941,16 +1083,18 @@ def sm_clock_mhz() -> int:
 
 
 def sass_step(lib: Path, kernel: str, anchor: str,
-              unrolled: int | None = None) -> tuple:
+              unrolled: int | None = None, taken: bool = False) -> tuple:
     """(instructions, static stall cycles) of one step of `kernel` in the
     built library, read from cuobjdump -sass: each instruction's second
     64-bit word carries ptxas's stall count in bits 41-44. A step runs
     from one instruction that matches the regex `anchor` (one a step)
     to the next; the median over the unrolled loop's steps. Where the
     kernel's one loop unrolls a known number of steps, `unrolled`, it
-    fails unless the anchor occurs exactly that often. The waits on
-    variable-latency results (shuffles, shared-memory loads) are not in
-    the count."""
+    fails unless the anchor occurs exactly that often. With `taken`, a
+    step counts the path that takes each predicated forward branch
+    inside it (H: the bit steps without a flush), else every instruction
+    between its anchors. The waits on variable-latency results
+    (shuffles, shared-memory loads) are not in the count."""
     from kanzi_tpu_torch.ops import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     lines = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -960,19 +1104,30 @@ def sass_step(lib: Path, kernel: str, anchor: str,
     for k, line in enumerate(lines):
         if "Function :" in line:
             inside = kernel in line
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(.*?)\s*/\* 0x[0-9a-f]+ \*/",
-                     line)
+        m = re.match(r"\s+/\*([0-9a-f]{4})\*/\s+(.*?)\s*"
+                     r"/\* 0x[0-9a-f]+ \*/", line)
         if inside and m:
             hi = int(re.search(r"0x[0-9a-f]+", lines[k + 1]).group(), 16)
-            ins.append((m.group(1), (hi >> 41) & 0xF))
-    at = [k for k, (op, _) in enumerate(ins) if re.match(anchor, op)]
+            ins.append((int(m.group(1), 16), m.group(2), (hi >> 41) & 0xF))
+    at = [k for k, (_, op, _) in enumerate(ins) if re.match(anchor, op)]
     if len(at) < 2:
         fail(f"sass_step: no two {anchor} in {kernel}")
     if unrolled is not None and len(at) != unrolled:
         fail(f"sass_step: {len(at)} {anchor} in {kernel}, not one a "
              f"step of its {unrolled} unrolled steps")
-    steps = [(b - a, sum(st for _, st in ins[a:b]))
-             for a, b in zip(at, at[1:])]
+    addr = [a for a, _, _ in ins]
+    steps = []
+    for a, b in zip(at, at[1:]):
+        n = st = 0
+        k = a
+        while k < b:
+            n, st = n + 1, st + ins[k][2]
+            br = re.match(r"@!?P\d BRA (0x[0-9a-f]+)", ins[k][1])
+            if taken and br and addr[k] < int(br.group(1), 16) <= addr[b]:
+                k = addr.index(int(br.group(1), 16))
+            else:
+                k += 1
+        steps.append((n, st))
     return (statistics.median(n for n, _ in steps),
             statistics.median(st for _, st in steps))
 
@@ -1167,6 +1322,89 @@ def check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate) -> None:
         f"3): {b * n / MiB / best:.1f} MiB/s ({best:.3f} s)")
 
 
+def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
+    """Phase 9: the level-2, 3 and 6 mesh chains on the corpus at 4 MiB
+    blocks against the host path, each call with the counters reset
+    just before and read just after; then one profile each of the
+    level-2 and level-6 decodes."""
+    import kanzi_tpu_torch
+    import kanzi_tpu_torch.ops as ops
+    blocks = len(corpus) // BLOCK
+    blobs = {}
+    for name, cm, dm, chain, entropy, enc_path, dec_path in (
+            ("l2", pp.compress_l2_mesh, pp.decompress_l2_mesh, pp.CHAIN_L2,
+             pp.ENTROPY_L2, ("huff_code_tables", "huff_pack"),
+             ("huff_decode",)),
+            ("l3", pp.compress_l3_mesh, pp.decompress_l3_mesh, pp.CHAIN_L3,
+             pp.ENTROPY_L3, ("huff_code_tables", "huff_pack"),
+             ("huff_decode",)),
+            ("l6", pp.compress_l6_mesh, pp.decompress_l6_mesh, pp.CHAIN_L6,
+             pp.ENTROPY_L6, ("fpaq_encode",), ("fpaq_decode",))):
+        ops.reset_counters()
+        blob, _ = timed(cm, corpus, BLOCK)
+        enc = dict(ops.COUNTERS)
+        ops.reset_counters()
+        back, _ = timed(dm, blob)
+        dec = dict(ops.COUNTERS)
+        log(f"{name} mesh chain ({chain} & {entropy}, 4 MiB blocks): "
+            f"{len(corpus)} -> {len(blob)} bytes; launches: encode {enc}, "
+            f"decode {dec}")
+        if back != corpus:
+            fail(f"decompress_{name}_mesh does not return the input")
+        for k, counts in ([(k, enc) for k in enc_path]
+                          + [(k, dec) for k in dec_path]):
+            if counts.get(k, 0) < 1:
+                fail(f"kernel {k} was not launched by the {name} mesh chain")
+            launches[k] = launches.get(k, 0) + counts[k]
+        for k in dec_path:                 # every block's stage at once
+            if dec[k] != 1:
+                fail(f"the {name} mesh decode launched {k} {dec[k]} times")
+        if enc.get("huff_host_chunks", 0) or dec.get("huff_host_chunks", 0):
+            fail(f"the {name} mesh chain coded Huffman chunks on the host")
+        if name == "l6" and dec.get("l6_decode_device_blocks") != blocks:
+            fail(f"the l6 mesh decode took {dec.get('l6_decode_device_blocks')}"
+                 f" of the {blocks} blocks, each with an FPAQ payload, on "
+                 "the card")
+        ops.disable()
+        try:
+            host = kanzi_tpu_torch.compress_bytes(corpus, chain, entropy,
+                                                  block_size=BLOCK)
+            if kanzi_tpu_torch.decompress_bytes(blob) != corpus:
+                fail(f"the host reader does not decode the {name} mesh "
+                     "chain's container")
+        finally:
+            ops.enable()
+        if blob != host:
+            fail(f"the {name} mesh chain's container differs from the host "
+                 "writer's")
+        # both rates beside the host path's: medians of 3 runs each, in
+        # turns
+        secs = {k: [] for k in ("card enc", "host enc", "card dec",
+                                "host dec")}
+        for _ in range(3):
+            secs["card enc"].append(timed(cm, corpus, BLOCK)[1])
+            secs["card dec"].append(timed(dm, blob)[1])
+            ops.disable()
+            try:
+                secs["host enc"].append(timed(
+                    kanzi_tpu_torch.compress_bytes, corpus, chain, entropy,
+                    block_size=BLOCK)[1])
+                secs["host dec"].append(timed(
+                    kanzi_tpu_torch.decompress_bytes, blob)[1])
+            finally:
+                ops.enable()
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        log(f"{name} mesh chain, medians of 3 runs each in turns: encode "
+            f"{rate(med['card enc'])} (host path {rate(med['host enc'])}, "
+            f"{med['host enc'] / med['card enc']:.2f}x), decode "
+            f"{rate(med['card dec'])} (host path {rate(med['host dec'])}, "
+            f"{med['host dec'] / med['card dec']:.2f}x); seconds "
+            + ", ".join(f"{k} {v}" for k, v in secs.items()))
+        blobs[name] = blob
+    profile("l2 mesh decode", lambda: pp.decompress_l2_mesh(blobs["l2"]))
+    profile("l6 mesh decode", lambda: pp.decompress_l6_mesh(blobs["l6"]))
+
+
 def report_kernels(kres: dict) -> None:
     """Print each kernel's line of phase 4; fail on any difference from
     its plain version."""
@@ -1177,6 +1415,8 @@ def report_kernels(kres: dict) -> None:
                                "16 x 64 KiB",
                  "fpaq_encode": "16 streams of 4 MiB; plain on the card "
                                 "at 64 x 8 KiB",
+                 "fpaq_decode": "16 streams of 4 MiB; plain on the card "
+                                "at 64 x 8 KiB, 2 KiB chunks",
                  }.get(k, r.get("shape", f"C={N_CHUNKS}"))
         if k.startswith("sbrt_"):
             shape = ("16 RANK inputs of 4 MiB + 33; plain on the card at "
@@ -1204,8 +1444,8 @@ def main(mode: str) -> None:
 
 
 def run(workers: dict, mode: str) -> None:
-    """Phases 1-9 (mode "full"); 1-4 for A-E and G only ("kernels");
-    1-3 and 5 ("containers")."""
+    """Phases 1-10 (mode "full"); 1-4 for A-E, G, H and SBRT only
+    ("kernels"); 1-3 and 5 ("containers")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -1260,6 +1500,8 @@ def run(workers: dict, mode: str) -> None:
         if mode == "kernels":
             kres.update(check_fpaq_kernel(corpus, dfp, native, dev, None,
                                           full_got))
+            kres.update(check_fpaq_decode_kernel(corpus, dfp, native, dev,
+                                                 None, full_got))
             kres.update(check_sbrt_kernels(rank_in, dsb, native, None,
                                            full_got))
             report_kernels(kres)
@@ -1269,6 +1511,8 @@ def run(workers: dict, mode: str) -> None:
                                       full_got))
         kres.update(check_fpaq_kernel(corpus, dfp, native, dev,
                                       workers["fpaq_encode"][0], full_got))
+        kres.update(check_fpaq_decode_kernel(corpus, dfp, native, dev,
+                                             workers, full_got))
         kres.update(check_sbrt_kernels(rank_in, dsb, native,
                                        workers["sbrt"][0], full_got))
         del rank_in
@@ -1460,10 +1704,13 @@ def run(workers: dict, mode: str) -> None:
     # 8. the device level-5 chain, and the fused chain
     check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate)
 
-    # F, G and SBRT against their plain versions on the host's CPU
+    # 9. the level-2, 3 and 6 mesh chains
+    check_mesh_chains(corpus, pp, launches, timed, rate)
+
+    # F, G, H and SBRT against their plain versions on the host's CPU
     finish_plain_workers(workers, full_got, kres)
 
-    # 9. no JAX, nothing of the JAX package
+    # 10. no JAX, nothing of the JAX package
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
     if foreign:

@@ -11,7 +11,10 @@ Host golden implementation (scalar). Where a writer batch holds enough
 FPAQ blocks to beat the host coder, the container encodes them on the
 CUDA card instead, one stream per block
 (io.compressed_stream.prepare_fpaq_batch, ops.fpaq), and hands each
-encoder the result (emit_prepared).
+encoder the result (emit_prepared). The decoder reads the chunk framing
+and, with a sink in the context ("_fpaqDecodeSink", the level-6 mesh
+decode's), queues each chunk's primed current and payload there in
+place of decoding it.
 """
 
 from __future__ import annotations
@@ -118,12 +121,18 @@ class FPAQDecoder(EntropyDecoder):
         if count >= MAX_BLOCK_SIZE:
             raise ValueError("Invalid block size parameter (max is 1<<30)")
         out = np.empty(count, dtype=np.uint8)
+        sink = self.ctx.get("_fpaqDecodeSink") if self.ctx else None
+        queued = []         # with a sink: (current, payload bytes) a chunk
         start = 0
         while start < count:
             sz_bytes = eu.read_varint(self.ibs)
             if sz_bytes >= 2 * count:
                 raise ValueError("Invalid FPAQ chunk size")
             current = self.ibs.read_bits(56)
+            if sink is not None:
+                queued.append((current, self.ibs.read_bytes(sz_bytes)))
+                start += min(DEFAULT_CHUNK_SIZE, count - start)
+                continue
             buf = self.ibs.read_bytes(sz_bytes) + b"\x00" * 8
             low = self._low
             high = self._high
@@ -162,4 +171,9 @@ class FPAQDecoder(EntropyDecoder):
             self._low = low
             self._high = high
             start += chunk_size
+        if sink is not None:
+            # the sink's owner decodes every queued block, one stream a
+            # block, in one call (parallel.pipeline, kernel H): out stays
+            # unfilled until then
+            sink.append((out, queued))
         return out

@@ -394,6 +394,29 @@ class HuffmanEncoder(EntropyEncoder):
             self.obs.write_bits(int(chunk[i]), 8)
 
 
+def huffman_flush_sink(entries, decode) -> None:
+    """ONE decode call for the full chunks of every queued (out,
+    chunk_idx, codes, sizes, pay, bounds) entry (HuffmanDecoder's
+    _decode_device), within a block or across the blocks of a file:
+    decode(codes [K, 256], sizes [K, 256], pay, bounds [4K + 1]) returns
+    their [K, 16384] bytes, which go to each entry's out."""
+    if len(entries) == 1:
+        codes, sizes, pay, bounds = entries[0][2:]
+    else:
+        codes = np.concatenate([e[2] for e in entries])
+        sizes = np.concatenate([e[3] for e in entries])
+        offs = np.cumsum([0] + [len(e[4]) for e in entries])
+        pay = np.concatenate([e[4] for e in entries])
+        bounds = np.concatenate([e[5][:-1] + o for e, o in zip(entries, offs)]
+                                + [offs[-1:]])
+    dec = decode(codes, sizes, pay, bounds)
+    k = 0
+    for out, idx, *_ in entries:
+        full = out[:(int(idx[-1]) + 1) * MAX_CHUNK_SIZE]
+        full.reshape(-1, MAX_CHUNK_SIZE)[idx] = dec[k:k + len(idx)]
+        k += len(idx)
+
+
 class HuffmanDecoder(EntropyDecoder):
     def __init__(self, ibs: BitReader, ctx=None, chunk_size: int = MAX_CHUNK_SIZE):
         super().__init__(ibs, ctx)
@@ -430,9 +453,10 @@ class HuffmanDecoder(EntropyDecoder):
         if bs_version < 6:
             return self._decode_v5(count)
         out = np.empty(count, dtype=np.uint8)
+        sink = self.ctx.get("_huffDecodeSink") if self.ctx else None
         device_ok = (self.chunk_size == MAX_CHUNK_SIZE
                      and count >= MAX_CHUNK_SIZE
-                     and _device_huffman_enabled())
+                     and (sink is not None or _device_huffman_enabled()))
         from kanzi_tpu_torch.utils import native
         use_native = native.transforms_available()
         if use_native and not device_ok:
@@ -448,7 +472,7 @@ class HuffmanDecoder(EntropyDecoder):
             pos, parsed, *queued = native.huff_parse_block(
                 self.ibs._data, self.ibs._nbits, self.ibs._pos, full, out)
             self.ibs.seek(pos)
-            self._decode_device(out, *queued)
+            self._decode_device(out, sink, *queued)
             if parsed < full:
                 return out[:parsed * MAX_CHUNK_SIZE]
             start = full * MAX_CHUNK_SIZE
@@ -483,7 +507,7 @@ class HuffmanDecoder(EntropyDecoder):
             pay = np.frombuffer(b"".join(q[3][0] for q in queued), np.uint8)
             nbytes = [n for q in queued for n in q[3][1]]
             self._decode_device(
-                out, np.array([q[0] for q in queued]),
+                out, sink, np.array([q[0] for q in queued]),
                 np.stack([np.asarray(q[2], np.int64) for q in queued]),
                 np.stack([np.asarray(q[1], np.int64) for q in queued]),
                 pay, np.concatenate([[0], np.cumsum(nbytes)]))
@@ -550,17 +574,24 @@ class HuffmanDecoder(EntropyDecoder):
             raws.append(raw)
         return b"".join(raws), [len(r) for r in raws]
 
-    def _decode_device(self, out: np.ndarray, chunk_idx, codes, sizes, pay,
-                       bounds) -> None:
+    def _decode_device(self, out: np.ndarray, sink, chunk_idx, codes,
+                       sizes, pay, bounds) -> None:
         """Decode the full chunks chunk_idx [K] of the block on the card:
         codes/sizes [K, 256] their canonical codes and lengths, their
-        fragments at pay[bounds[4k + f] : bounds[4k + f + 1]]."""
+        fragments at pay[bounds[4k + f] : bounds[4k + f + 1]]. With a
+        sink (the "_huffDecodeSink" context key) the chunks are queued
+        there instead, and their bytes of out stay unfilled until the
+        sink's owner decodes every queued block in one call
+        (huffman_flush_sink)."""
         if len(chunk_idx) == 0:
             return
-        dec = dhuff.huffman_decode_chunks(codes, sizes, pay, bounds,
-                                          coding_device(self.ctx))
-        full = out[:(int(chunk_idx[-1]) + 1) * MAX_CHUNK_SIZE]
-        full.reshape(-1, MAX_CHUNK_SIZE)[chunk_idx] = dec
+        entry = (out, chunk_idx, codes, sizes, pay, bounds)
+        if sink is not None:
+            sink.append(entry)
+            return
+        dev = coding_device(self.ctx)
+        huffman_flush_sink([entry], lambda *a: dhuff.huffman_decode_chunks(
+            *a, dev))
 
     def _decode_chunk(self, out, start, count, alphabet, sizes, codes):
         # flat 12-bit prefix table (HuffmanDecoder.cpp:buildDecodingTable)

@@ -322,36 +322,68 @@ def prepare_fpaq_batch(states: list, ctx: Context) -> None:
     src/entropy/FPAQEncoder.hpp encodeBit."""
     if not ops.ENABLED:
         return
-    elig = [st for st in states
-            if st["e_type"] == FPAQ_TYPE
-            and not (st["mode"] & COPY_BLOCK_MASK)
-            and st["post_len"] > 0]
+    elig = _fpaq_blocks(states)
     if not elig:
         return
     dev = coding_device(ctx)
-    wpc = FPAQ_CHUNK // dfp.WIN_B             # windows per FPAQ chunk
     for g0 in range(0, len(elig), dfp.NS):
         group = elig[g0:g0 + dfp.NS]
         lens = np.array([st["post_len"] for st in group], np.int64)
-        if not _fpaq_on_device(dev, lens.tolist()):
-            continue
-        streams = np.zeros((len(group), int(lens.max())), np.uint8)
-        for i, st in enumerate(group):
-            streams[i, :lens[i]] = st["out"][:lens[i]]
-        bufs, low56, ww, wl = dfp.fpaq_encode_batch(streams, lens,
-                                                    FPAQ_CHUNK, dev)
-        for i, st in enumerate(group):
-            nchunks = -(-int(lens[i]) // FPAQ_CHUNK)
-            chunk_bufs, bound_lows = [], []
-            pos = 0
-            for k in range(nchunks):
-                w_end = min((k + 1) * wpc, ww.shape[1])
-                words = int(ww[i, :w_end].sum()) - pos
-                chunk_bufs.append(bufs[i][4 * pos:4 * (pos + words)])
-                pos += words
-                if k + 1 < nchunks:
-                    bound_lows.append(int(wl[i, w_end - 1]))
-            st["prepared_entropy"] = (chunk_bufs, bound_lows, int(low56[i]))
+        if _fpaq_on_device(dev, lens.tolist()):
+            _stash_fpaq(group, lens, dfp.fpaq_encode_batch(
+                _fpaq_streams(group, lens), lens, FPAQ_CHUNK, dev))
+
+
+def _fpaq_blocks(states: list) -> list:
+    """The blocks of states whose FPAQ stage codes bytes."""
+    return [st for st in states
+            if st["e_type"] == FPAQ_TYPE
+            and not (st["mode"] & COPY_BLOCK_MASK)
+            and st["post_len"] > 0]
+
+
+def _fpaq_streams(group: list, lens: np.ndarray) -> np.ndarray:
+    """The blocks' post-transform bytes (lens[i] of block i) as one
+    stream each: [b, max(lens)] uint8, zero past each length."""
+    streams = np.zeros((len(group), int(lens.max())), np.uint8)
+    for i, st in enumerate(group):
+        streams[i, :lens[i]] = st["out"][:lens[i]]
+    return streams
+
+
+def _stash_fpaq(group: list, lens: np.ndarray, enc: tuple) -> None:
+    """Give each block of group its FPAQ chunk framing (chunk_bufs,
+    boundary_low56s, final_low56, emit_prepared's argument) from one
+    fpaq_encode_batch result over their streams."""
+    bufs, low56, ww, wl = enc
+    wpc = FPAQ_CHUNK // dfp.WIN_B             # windows per FPAQ chunk
+    for i, st in enumerate(group):
+        nchunks = -(-int(lens[i]) // FPAQ_CHUNK)
+        chunk_bufs, bound_lows = [], []
+        pos = 0
+        for k in range(nchunks):
+            w_end = min((k + 1) * wpc, ww.shape[1])
+            words = int(ww[i, :w_end].sum()) - pos
+            chunk_bufs.append(bufs[i][4 * pos:4 * (pos + words)])
+            pos += words
+            if k + 1 < nchunks:
+                bound_lows.append(int(wl[i, w_end - 1]))
+        st["prepared_entropy"] = (chunk_bufs, bound_lows, int(low56[i]))
+
+
+def _full_chunks(states: list, e_type: int, size: int) -> tuple:
+    """The blocks of states that entropy type e_type codes and that hold
+    a full chunk of ``size`` bytes, the full chunks of each, and all of
+    those chunks as one [C, size] uint8 array."""
+    elig = [st for st in states
+            if st["e_type"] == e_type
+            and not (st["mode"] & COPY_BLOCK_MASK)
+            and st["post_len"] >= size]
+    counts = [st["post_len"] // size for st in elig]
+    chunks = (np.concatenate([st["out"][:n * size].reshape(n, size)
+                              for st, n in zip(elig, counts)])
+              if elig else None)
+    return elig, counts, chunks
 
 
 def prepare_ans1_batch(states: list, ctx: Context) -> None:
@@ -392,18 +424,17 @@ def prepare_huffman_batch(states: list, ctx: Context) -> None:
     (mirror of prepare_ans0_batch)."""
     if not ops.ENABLED:
         return
-    elig = [st for st in states
-            if st["e_type"] == HUFFMAN_TYPE
-            and not (st["mode"] & COPY_BLOCK_MASK)
-            and st["post_len"] >= dhuff.CHUNK]
-    if not elig:
-        return
-    counts = [st["post_len"] // dhuff.CHUNK for st in elig]
-    chunks = np.concatenate(
-        [st["out"][:n * dhuff.CHUNK].reshape(n, dhuff.CHUNK)
-         for st, n in zip(elig, counts)])
-    (hdr, hdr_bits, ok, m, flat, npairs,
-     acc, nb, frag_bits) = dhuff.encode_chunks_np(chunks, coding_device(ctx))
+    elig, counts, chunks = _full_chunks(states, HUFFMAN_TYPE, dhuff.CHUNK)
+    if elig:
+        _stash_huffman(elig, counts, dhuff.encode_chunks_np(
+            chunks, coding_device(ctx)))
+
+
+def _stash_huffman(elig: list, counts: list, enc: tuple) -> None:
+    """Give each block of elig its slice of one encode_chunks_np result
+    (ops.huffman) over all of their full chunks (counts[i] chunks for
+    elig[i])."""
+    (hdr, hdr_bits, ok, m, flat, npairs, acc, nb, frag_bits) = enc
     plen16 = npairs.sum(1)
     offs16 = np.cumsum(plen16) - plen16
     pos = 0
@@ -424,18 +455,10 @@ def prepare_ans0_batch(states: list, ctx: Context) -> None:
     phase 2. Mutates states in place."""
     if not ops.ENABLED:
         return
-    elig = [st for st in states
-            if st["e_type"] == ANS0_TYPE
-            and not (st["mode"] & COPY_BLOCK_MASK)
-            and st["post_len"] >= dans.CHUNK]
-    if not elig:
-        return
-    counts = [st["post_len"] // dans.CHUNK for st in elig]
-    chunks = np.concatenate(
-        [st["out"][:n * dans.CHUNK].reshape(n, dans.CHUNK)
-         for st, n in zip(elig, counts)])
-    _stash_ans0(elig, counts, dans.encode_chunks_np(chunks,
-                                                    coding_device(ctx)))
+    elig, counts, chunks = _full_chunks(states, ANS0_TYPE, dans.CHUNK)
+    if elig:
+        _stash_ans0(elig, counts, dans.encode_chunks_np(chunks,
+                                                        coding_device(ctx)))
 
 
 def _stash_ans0(elig: list, counts: list, enc: tuple) -> None:
@@ -458,12 +481,13 @@ def _decode_block_entropy(payload: bytes, bit_len: int, block_id: int,
                           entropy_type: int, block_size: int,
                           checksum_bits: int = 0,
                           listeners: Optional[ListenerBus] = None,
-                          sink=None):
+                          sinks: Optional[dict] = None):
     """Phase 1 of the per-block inverse pipeline: block header parse +
-    entropy decode. With `sink` set, device-eligible ANS0 chunks are
-    queued for a later cross-block ans0_flush_sink and the returned
-    buffer stays unfilled in those regions until the flush. Returns the
-    state tuple for _decode_block_finish."""
+    entropy decode. With `sinks` ({context key: list}, e.g.
+    "_ans0DecodeSink"), the entropy decoder queues its device chunks in
+    the list under its key for a later cross-block flush, and the
+    returned buffer stays unfilled in those regions until the flush.
+    Returns the state tuple for _decode_block_finish."""
     ibs = BitReader(payload)
     t_type = transform_type
     e_type = entropy_type
@@ -502,8 +526,8 @@ def _decode_block_entropy(payload: bytes, bit_len: int, block_id: int,
     # the decode output buffer capacity (DecodingTask allocates
     # max(blockLength, payload bytes)); TEXT sizes its dictionary from it
     bctx.put("_decodeCapacity", max(block_size, (bit_len + 7) >> 3))
-    if sink is not None:
-        bctx.put("_ans0DecodeSink", sink)
+    for key, sink in (sinks or {}).items():
+        bctx.put(key, sink)
 
     ed = efactory.new_decoder(ibs, bctx, e_type)
     buf = ed.decode(pre_len)
@@ -782,10 +806,16 @@ class CompressedReader:
                  headerless: bool = False, transform: str = "NONE",
                  entropy: str = "NONE", block_size: int = 4 * 1024 * 1024,
                  checksum_bits: int = 0, original_size: int = 0,
-                 bs_version: int = FORMAT_VERSION, device=None):
+                 bs_version: int = FORMAT_VERSION, device=None,
+                 decode_sinks: Optional[dict] = None,
+                 sink_window: int = _SINK_WINDOW):
         """data: bytes-like (in-memory) or a binary file object (streamed
         incrementally -- CompressedInputStream.cpp:336-508 reads the same
-        way; peak memory stays O(block size))."""
+        way; peak memory stays O(block size)). decode_sinks: {context
+        key: flush(entries)}, the entropy decoders' cross-block sinks and
+        what decodes their queued entries, once every sink_window blocks
+        (sequential decode only); default the ANS0 sink where the device
+        path is live."""
         if isinstance(data, (bytes, bytearray, memoryview)):
             self.ibs = BitReader(data)
         else:
@@ -797,6 +827,8 @@ class CompressedReader:
         self.headerless = headerless
         self._blocks_decoded = 0
         self.output_size = 0
+        self.decode_sinks = decode_sinks
+        self.sink_window = sink_window
         if headerless:
             self.transform_type = tfactory.transform_name_to_type(transform)
             self.entropy_type = efactory.entropy_name_to_type(entropy)
@@ -957,11 +989,23 @@ class CompressedReader:
             if self.jobs > 1 else None
         inflight = deque()
         # cross-block device entropy batching (sequential path only):
-        # active when the device ANS path is live, a no-op sink otherwise
-        sink = None
+        # the ANS0 sink where the device path is live, or the caller's
+        flushes = self.decode_sinks
+        if flushes is None and ops.ENABLED:
+            flushes = {"_ans0DecodeSink":
+                       lambda entries: ans0_flush_sink(entries, self.ctx)}
+        sinks = {k: [] for k in flushes} if ex is None and flushes else None
         pending = []
-        if ex is None and ops.ENABLED:
-            sink = []
+
+        def flush():
+            for key, entries in sinks.items():
+                if entries:
+                    flushes[key](entries)
+                entries.clear()
+            for st, v in pending:
+                self._blocks_decoded += 1
+                yield _decode_block_finish(st, out=v)
+            pending.clear()
         try:
             block_id = 0
             while True:
@@ -984,24 +1028,19 @@ class CompressedReader:
                         offset=self.ibs.tell() - bits))
                 view = out_view_fn(block_id) if out_view_fn else None
                 if ex is None:
-                    if sink is not None:
+                    if sinks is not None:
                         # cross-block device batching: queue this block's
-                        # entropy phase; one ans0_flush_sink per window
-                        # decodes every queued chunk of every block in
-                        # O(1) device calls (CompressedInputStream's
-                        # prefetch analog for the accelerator)
+                        # entropy phase; one flush per window decodes
+                        # every queued chunk of every block in O(1)
+                        # device calls (CompressedInputStream's prefetch
+                        # analog for the accelerator)
                         pending.append((_decode_block_entropy(
                             payload, bits, block_id, self.ctx,
                             self.transform_type, self.entropy_type,
                             self.block_size, self.checksum_bits,
-                            self.listeners, sink=sink), view))
-                        if len(pending) >= _SINK_WINDOW:
-                            ans0_flush_sink(sink, self.ctx)
-                            sink.clear()
-                            for st, v in pending:
-                                self._blocks_decoded += 1
-                                yield _decode_block_finish(st, out=v)
-                            pending.clear()
+                            self.listeners, sinks=sinks), view))
+                        if len(pending) >= self.sink_window:
+                            yield from flush()
                         continue
                     data = decode_block(payload, bits, block_id, self.ctx,
                                         self.transform_type,
@@ -1021,13 +1060,8 @@ class CompressedReader:
                     data = inflight.popleft().result()
                     self._blocks_decoded += 1
                     yield data
-            if sink is not None and pending:
-                ans0_flush_sink(sink, self.ctx)
-                sink.clear()
-                for st, v in pending:
-                    self._blocks_decoded += 1
-                    yield _decode_block_finish(st, out=v)
-                pending.clear()
+            if pending:
+                yield from flush()
             while inflight:
                 data = inflight.popleft().result()
                 self._blocks_decoded += 1

@@ -64,6 +64,12 @@ SIGNATURES = {
         # win_low, device, stream
         "fpaq_encode": [_P, _P, _I, _L, _I, _L, _P, _P, _P, _I, _P],
     },
+    "fpaq_dec.cu": {
+        # pay, chunk_off, chunk_nw, chunk_cur, first, lens, n_streams,
+        # chunk_bytes, ld, out, consumed, low, high, probs, device, stream
+        "fpaq_decode": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _P, _P, _P, _P,
+                        _P, _I, _P],
+    },
     "sbrt.cu": {
         # blocks, lens, n_blocks, ld, seg, occ_last, occ_sec, device, stream
         "sbrt_occ": [_P, _P, _I, _L, _I, _P, _P, _I, _P],

@@ -29,7 +29,16 @@ stream can outgrow (at most one flush per coded bit).
 
 One hand-written CUDA kernel (csrc/fpaq.cu) behind ``fpaq_encode``,
 with ``fpaq_encode_plain`` beside it (Pallas ``_fpaq_encode_kernel``).
-Decode stays on the host's native coder, as in kanzi_tpu.
+
+The decode of many streams at once is the second kernel, H
+(csrc/fpaq_dec.cu) behind ``fpaq_decode``, with ``fpaq_decode_plain``
+beside it: the function kanzi_tpu computes in XLA with no Pallas kernel
+(kanzi_tpu/ops/fpaq_jnp.py decode_batch_jnp), here every chunk of every
+stream in one launch: from the host parse's chunk records
+(``fpaq_decode_records``, which the level-6 mesh decode,
+parallel.pipeline.decompress_l6_mesh, runs) or from decode_batch_jnp's
+padded rows (``fpaq_decode_batch``). The container's FPAQ decode stays
+on the host's native coder, as in kanzi_tpu.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 
 from kanzi_tpu_torch.ops.ans import (_check, _host_tensor, _launch, _on_cpu,
-                                     _u32_bits)
+                                     _to_device, _to_numpy, _u32_bits)
 
 WIN_B = 512                  # input bytes per stream per window
 REGION_W = WIN_B // 2        # flush words a window a stream's region holds
@@ -53,6 +62,7 @@ MASK_0_24 = (1 << 24) - 1
 MASK_0_32 = (1 << 32) - 1
 MASK_0_56 = (1 << 56) - 1
 PSCALE_HALF = 1 << 15
+TABLE = 4 * 256              # probs[4][256], one row a stream
 
 
 # ---------------------------------------------------------------------------
@@ -196,3 +206,240 @@ def fpaq_encode_batch(streams: np.ndarray, lens: np.ndarray,
                 ">u4").tobytes()
     low56 = [int(x) for x in win_low[:, -1]]
     return bufs, low56, win_words, win_low
+
+
+# ---------------------------------------------------------------------------
+# H. decode
+# ---------------------------------------------------------------------------
+
+def fpaq_init_state(b: int, device="cpu") -> tuple:
+    """The decoder's state at a block's start, for b streams: (low [b]
+    int64 0, high [b] int64 MASK_0_56, probs [b, TABLE] int32
+    PSCALE_HALF)."""
+    return (torch.zeros(b, dtype=torch.int64, device=device),
+            torch.full((b,), MASK_0_56, dtype=torch.int64, device=device),
+            torch.full((b, TABLE), PSCALE_HALF, dtype=torch.int32,
+                       device=device))
+
+
+def fpaq_state_from_limbs(state, device="cpu") -> tuple:
+    """kanzi_tpu's lockstep state (l_h, l_l, h_h, h_l, probs: 28-bit
+    limbs [b] and probs [b, TABLE] as numpy, kanzi_tpu/ops/fpaq_jnp.py
+    _init_state_jnp's layout; a sixth entry, decode_streams_np's
+    current, is ignored) as this module's (low, high, probs) on
+    ``device``."""
+    l_h, l_l, h_h, h_l, probs = (np.asarray(x) for x in state[:5])
+
+    def join(h, lo):
+        v = (h.astype(np.int64) << 28) | lo.astype(np.int64)
+        return torch.from_numpy(v).to(device)
+
+    return (join(l_h, l_l), join(h_h, h_l),
+            torch.from_numpy(probs.astype(np.int32)).to(device))
+
+
+def fpaq_decode_plain(pay, chunk_off, chunk_nw, chunk_cur, first, lens,
+                      chunk_bytes: int, low, high, probs):
+    """Plain version of the fpaq_decode kernel: the streams in lockstep,
+    a Python loop over the output bytes and their 8 bits on [b] tensors.
+    A stream past its end codes on against a scratch table, and its
+    state is put back after each byte. Returns (out [b, max(lens)]
+    uint8, consumed [C] int64, low', high', probs')."""
+    b, dev = lens.shape[0], lens.device
+    lens_h = lens.tolist()
+    n_len, n_all = max(lens_h, default=0), min(lens_h, default=0)
+    n_pay, n_chunks = pay.numel(), chunk_off.numel()
+    payz = torch.cat([pay.long() & MASK_0_32,
+                      torch.zeros(1, dtype=torch.int64, device=dev)])
+    # the table, and a scratch bank that the streams past their end use
+    tbl = torch.cat([probs.long(), torch.zeros((b, 256), dtype=torch.int64,
+                                               device=dev)], 1)
+    out = torch.zeros((b, n_len), dtype=torch.uint8, device=dev)
+    consumed = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+    zero = torch.zeros(b, dtype=torch.int64, device=dev)
+    nch = (lens + chunk_bytes - 1) // chunk_bytes
+
+    def word(c, widx):              # the chunk's word widx, 0 past its end
+        return payz[torch.where(widx < chunk_nw[c], chunk_off[c] + widx,
+                                n_pay)]
+
+    for i in range(n_len):
+        k, at = divmod(i, chunk_bytes)
+        c = (first + k).clamp(0, max(n_chunks - 1, 0))
+        if at == 0:                 # a chunk starts: bank 0, its current
+            cur, widx, bank = chunk_cur[c], zero, zero
+            nxt = word(c, widx)
+        base = bank << 8
+        if i >= n_all:              # some stream has ended
+            alive = i < lens
+            base = torch.where(alive, base, TABLE)
+            kept = low, high, cur, widx, nxt
+        ctx = torch.ones_like(zero)
+        for _ in range(8):
+            idx = (base + ctx)[:, None]
+            p = tbl.gather(1, idx)[:, 0]
+            r8 = (high - low) >> 8
+            split = low + (((r8 >> 24) * p) << 16) + (
+                ((r8 & MASK_0_24) * p) >> 8)
+            bit = split >= cur
+            high = torch.where(bit, split, high)
+            low = torch.where(bit, low, split + 1)
+            bit = bit.long()
+            tbl.scatter_(1, idx, (p - (p >> 6) + 1023 * bit)[:, None])
+            ctx = 2 * ctx + bit
+            flush = ((low ^ high) >> 24) == 0
+            if bool(flush.any()):
+                low = torch.where(flush, (low & MASK_0_24) << 32, low)
+                high = torch.where(flush, ((high & MASK_0_24) << 32)
+                                   | MASK_0_32, high)
+                cur = torch.where(flush, ((cur & MASK_0_24) << 32) | nxt,
+                                  cur)
+                widx = widx + flush
+                nxt = torch.where(flush, word(c, widx), nxt)
+        sym = ctx & 0xFF
+        bank = sym >> 6
+        if i >= n_all:
+            low, high, cur, widx, nxt = (
+                torch.where(alive, new, old) for new, old in zip(
+                    (low, high, cur, widx, nxt), kept))
+            sym = torch.where(alive, sym, 0)
+        out[:, i] = sym.to(torch.uint8)
+        if at == chunk_bytes - 1 or i == n_len - 1:   # a chunk ends
+            mine = k < nch
+            consumed[c[mine]] = widx[mine]
+    return out, consumed, low, high, tbl[:, :TABLE].to(torch.int32)
+
+
+def fpaq_decode(pay, chunk_off, chunk_nw, chunk_cur, first, lens,
+                chunk_bytes: int, state=None):
+    """Decode b FPAQ streams, every chunk of every stream in one launch.
+    pay [N] int32: u32 payload words (each chunk's bytes after its 7
+    priming bytes as big-endian words; chunk c's are
+    pay[chunk_off[c] : chunk_off[c] + chunk_nw[c]], and a read at or
+    past chunk_nw[c] yields 0, as the host decoder shifts in a zero word
+    once fewer than 4 payload bytes are left); chunk_off, chunk_nw
+    [C] int64; chunk_cur [C] int64, each chunk's 56-bit current primed
+    from its first 7 bytes; stream s has ceil(lens[s] / chunk_bytes)
+    chunks, first[s], first[s] + 1, ... ([b] int64 each); state: the
+    (low, high, probs) the streams start from (fpaq_init_state when
+    None; not modified).
+
+    Returns (out [b, max(lens)] uint8, zero past each stream's length;
+    consumed [C] int64, the words each chunk shifted in; (low, high,
+    probs), the state each stream ends in). The host decoders' payload
+    overrun test (their byte index past size + 1) cannot fire, since the
+    index stops at size + 1 once the words run out, so no caller tests
+    consumed against it."""
+    b, dev = lens.shape[0], lens.device
+    n_chunks = chunk_off.shape[0]
+    if chunk_bytes < 1:
+        raise ValueError(f"chunk_bytes {chunk_bytes} < 1")
+    _check("pay", pay, torch.int32, (pay.numel(),), dev)
+    for name, t in (("chunk_off", chunk_off), ("chunk_nw", chunk_nw),
+                    ("chunk_cur", chunk_cur)):
+        _check(name, t, torch.int64, (n_chunks,), dev)
+    for name, t in (("first", first), ("lens", lens)):
+        _check(name, t, torch.int64, (b,), dev)
+    if state is None:
+        state = fpaq_init_state(b, dev)
+    low, high, probs = state
+    _check("low", low, torch.int64, (b,), dev)
+    _check("high", high, torch.int64, (b,), dev)
+    _check("probs", probs, torch.int32, (b, TABLE), dev)
+    plain = _on_cpu("fpaq_decode", dev)
+    nch = (lens + chunk_bytes - 1) // chunk_bytes
+    if not bool(((lens >= 0) & (first >= 0) & (first + nch <= n_chunks))
+                .all() & ((chunk_off >= 0) & (chunk_nw >= 0)
+                          & (chunk_off + chunk_nw <= pay.numel())).all()):
+        raise ValueError("fpaq_decode: a stream's chunks or a chunk's words "
+                         "outside their arrays")
+    if plain:
+        out, consumed, *state = fpaq_decode_plain(
+            pay, chunk_off, chunk_nw, chunk_cur, first, lens, chunk_bytes,
+            low, high, probs)
+        return out, consumed, tuple(state)
+    n_len = int(lens.max()) if b else 0
+    out = torch.zeros((b, n_len), dtype=torch.uint8, device=dev)
+    consumed = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+    low, high, probs = low.clone(), high.clone(), probs.clone()
+    _launch("fpaq_decode", dev, pay, chunk_off, chunk_nw, chunk_cur, first,
+            lens, b, chunk_bytes, n_len, out, consumed, low, high, probs)
+    return out, consumed, (low, high, probs)
+
+
+def decode_layout(chunk_payloads, chunk_currents, lens,
+                  chunk_bytes: int) -> tuple:
+    """kanzi_tpu.ops.fpaq_jnp.decode_batch_jnp's inputs (see
+    fpaq_decode_batch) as fpaq_decode's flat arrays, numpy: (pay int32,
+    chunk_off, chunk_nw, chunk_cur, first, lens int64), the chunk
+    records stream by stream, each chunk's words its row of
+    chunk_payloads[k]."""
+    lens = np.asarray(lens, np.int64)
+    b = len(lens)
+    nch = -(-lens // chunk_bytes)
+    if b and int(nch.max()) > len(chunk_payloads):
+        raise ValueError(f"a stream of {int(nch.max())} chunks, "
+                         f"{len(chunk_payloads)} chunk payloads")
+    widths = np.array([p.shape[1] for p in chunk_payloads], np.int64)
+    base = np.cumsum(b * widths) - b * widths
+    first = np.cumsum(nch) - nch
+    s_idx = np.repeat(np.arange(b), nch)
+    k_idx = np.arange(int(nch.sum())) - np.repeat(first, nch)
+    chunk_cur = (np.stack(chunk_currents)[k_idx, s_idx].astype(np.int64)
+                 if len(k_idx) else np.zeros(0, np.int64))
+    pay = (np.concatenate([np.asarray(p, np.uint32).reshape(-1)
+                           for p in chunk_payloads])
+           if chunk_payloads else np.zeros(0, np.uint32))
+    return (pay.view(np.int32), base[k_idx] + s_idx * widths[k_idx],
+            widths[k_idx], chunk_cur, first, lens)
+
+
+def flat_records(frames) -> tuple:
+    """Streams' FPAQ chunks as the decoder reads them, frames[s] =
+    [(primed current, the payload bytes after the 7 priming bytes)] a
+    chunk, as fpaq_decode's flat arrays, numpy: (pay int32, chunk_off,
+    chunk_nw, chunk_cur, first int64), the chunks stream by stream. A
+    chunk holds its payload's whole big-endian words: the host decoder
+    reads zero words once fewer than 4 payload bytes are left, never a
+    payload's last size % 4 bytes."""
+    recs = [rc for f in frames for rc in f]
+    nw = np.array([len(x) // 4 for _, x in recs], np.int64)
+    pay = np.frombuffer(b"".join(x[:4 * (len(x) // 4)] for _, x in recs),
+                        ">u4").astype(np.uint32)
+    nch = np.array([len(f) for f in frames], np.int64)
+    return (pay.view(np.int32), np.cumsum(nw) - nw, nw,
+            np.array([c for c, _ in recs], np.int64), np.cumsum(nch) - nch)
+
+
+def _decode_flat(flat, lens, chunk_bytes: int, device) -> np.ndarray:
+    """fpaq_decode on ``device`` over numpy flat arrays (flat_records'
+    or decode_layout's) and lens [b]: out [b, max(lens)] uint8 numpy."""
+    dev = torch.device(device)
+    pay, *rest = flat
+    out, _, _ = fpaq_decode(_to_device(pay, np.int32, dev),
+                            *(_to_device(a, np.int64, dev)
+                              for a in (*rest, np.asarray(lens, np.int64))),
+                            chunk_bytes)
+    return _to_numpy(dev, out)[0]
+
+
+def fpaq_decode_records(frames, lens: np.ndarray, chunk_bytes: int,
+                        device) -> np.ndarray:
+    """Decode b streams on ``device`` in one launch of fpaq_decode from
+    their chunk records as the host parse reads them (flat_records'
+    frames), lens [b] the output bytes a stream. Returns out [b,
+    max(lens)] uint8 numpy, zero past each stream's length."""
+    return _decode_flat(flat_records(frames), lens, chunk_bytes, device)
+
+
+def fpaq_decode_batch(chunk_payloads, chunk_currents, lens: np.ndarray,
+                      chunk_bytes: int, device) -> np.ndarray:
+    """Decode b streams on ``device`` in one launch of fpaq_decode.
+    kanzi_tpu.ops.fpaq_jnp.decode_batch_jnp's contract:
+    chunk_payloads[k] = [b, W_k] u32 payload words of chunk k (rows of
+    streams with fewer than k + 1 chunks are unused, every row zero past
+    its words), chunk_currents[k] = [b] u64 primed currents, lens [b]
+    the output bytes a stream. Returns out [b, max(lens)] uint8 numpy,
+    zero past each stream's length."""
+    flat = decode_layout(chunk_payloads, chunk_currents, lens, chunk_bytes)
+    return _decode_flat(flat[:5], flat[5], chunk_bytes, device)

@@ -4,11 +4,21 @@ The reference's parallel model is pure block data-parallelism:
 independent blocks fan out to worker threads and commit to the shared
 bitstream in block order (src/io/CompressedOutputStream.cpp:476-546,
 835-868). Here a batch of blocks runs as one pass on the card and the
-host commits the container in block order. The "block" mesh has one
-device; more than one card is ROADMAP item 14.
+host commits the container in block order: the level-5 chain's
+transforms and entropy stage, and the entropy stage of the level-2, 3
+and 6 chains (parallel.pipeline). Their FPAQ decode runs kernel H on the
+card, where the container's FPAQ decode stays on the host's native
+coder, as in kanzi_tpu. The "block" mesh has one device; more than one
+card is ROADMAP item 14.
 """
 
 from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
-                                           shard_ans0_encode)
+                                           shard_ans0_encode,
+                                           shard_fpaq_decode,
+                                           shard_fpaq_encode,
+                                           shard_huffman_decode,
+                                           shard_huffman_encode)
 
-__all__ = ["block_mesh", "shard_ans0_encode", "shard_ans0_decode"]
+__all__ = ["block_mesh", "shard_ans0_encode", "shard_ans0_decode",
+           "shard_huffman_encode", "shard_huffman_decode",
+           "shard_fpaq_encode", "shard_fpaq_decode"]

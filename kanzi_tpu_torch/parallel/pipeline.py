@@ -1,12 +1,13 @@
-"""The device level-5 block pipeline (TEXT+UTF+BWT+RANK+ZRLT & ANS0) on
+"""The device block pipelines of the level-2, 3, 5 and 6 containers on
 one card.
 
-The PyTorch counterpart of kanzi_tpu/parallel/pipeline.py's level-5
-chain: the per-byte transform stages and the ANS0 entropy stage of a
-batch of blocks run as one pass on the card, the batch axis written out
-where the JAX package vmaps over blocks.
+The PyTorch counterpart of kanzi_tpu/parallel/pipeline.py's mesh chains:
+each container's per-byte stages of a batch of blocks run as one pass on
+the card, the batch axis written out where the JAX package vmaps over
+blocks.
 
-Division of labor, as in kanzi_tpu:
+Level 5 (TEXT+UTF+BWT+RANK+ZRLT & ANS0), division of labor as in
+kanzi_tpu:
 - card: BWT and its block-codec header (ops/bwt.py), RANK (ops.sbrt in
   mode 2, the SBRT kernel, in place of kanzi_tpu's lax.scan), ZRLT (torch
   ops: cumsums and scatters), then the ANS0 chunk encode (kernels A and
@@ -16,10 +17,16 @@ Division of labor, as in kanzi_tpu:
   the ZRLT capacity gate, the copy-back rule), text blocks and the tail
   block through the host chain, and the ordered container commit.
 
-The container is byte-identical with the host writer's, and
-decompress_l5_mesh inverts it; the tests and chip_smoke.py hold both.
-The other mesh chains of kanzi_tpu (l2, l3, l6, l7) and more than one
-card are ROADMAP item 14.
+Levels 2 (DNA+LZ), 3 (TEXT+UTF+PACK+MM+LZX, the default level) and 6
+(TEXT+UTF+BWT+SRT+ZRLT): the transforms run on the host, one block at a
+time, and the entropy stage of every block of the file is one batched
+call on the card each way: Huffman's kernels D and E for levels 2 and
+3, FPAQ's G and H for level 6 (one stream a block).
+
+Each container is byte-identical with the host writer's, and its
+decompress_*_mesh inverts it and kanzi_tpu's; the tests and
+chip_smoke.py hold both. kanzi_tpu's level-7 chain (the CM lockstep
+coder) is not ported yet, and more than one card is ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -33,16 +40,24 @@ import kanzi_tpu_torch.ops as _ops
 from kanzi_tpu_torch.bitstream import BitReader
 from kanzi_tpu_torch.core.context import Context
 from kanzi_tpu_torch.core.stats import log2 as _log2
+from kanzi_tpu_torch.entropy import fpaq as efpaq
 from kanzi_tpu_torch.entropy.ans import ANSRangeDecoder
 from kanzi_tpu_torch.entropy.factory import entropy_name_to_type
+from kanzi_tpu_torch.entropy.huffman import huffman_flush_sink
 from kanzi_tpu_torch.io.compressed_stream import (
-    ANS0_TYPE, COPY_BLOCK_MASK, CompressedReader, CompressedWriter,
-    _encode_block_phase1, _stash_ans0, decode_block)
+    ANS0_TYPE, COPY_BLOCK_MASK, FPAQ_CHUNK, HUFFMAN_TYPE, MAX_BLOCK_ID,
+    CompressedReader, CompressedWriter, _encode_block_phase1, _fpaq_blocks, _fpaq_streams, _full_chunks,
+    _stash_ans0, _stash_fpaq, _stash_huffman, decode_block)
 from kanzi_tpu_torch.ops import ans as dans
 from kanzi_tpu_torch.ops import bwt as dbwt
+from kanzi_tpu_torch.ops import huffman as dhuff
 from kanzi_tpu_torch.ops.sbrt import MODE_RANK, sbrt
 from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
-                                           shard_ans0_encode)
+                                           shard_ans0_encode,
+                                           shard_fpaq_decode,
+                                           shard_fpaq_encode,
+                                           shard_huffman_decode,
+                                           shard_huffman_encode)
 from kanzi_tpu_torch.transform.factory import (new_transform,
                                                transform_name_to_type)
 
@@ -277,17 +292,9 @@ def l5_chain(blocks: torch.Tensor):
 def prepare_ans0_batch_mesh(states: list, mesh) -> None:
     """compressed_stream.prepare_ans0_batch over the mesh: every eligible
     block's full 16 KiB chunks in one encode call."""
-    elig = [st for st in states
-            if st["e_type"] == ANS0_TYPE
-            and not (st["mode"] & COPY_BLOCK_MASK)
-            and st["post_len"] >= dans.CHUNK]
-    if not elig:
-        return
-    counts = [st["post_len"] // dans.CHUNK for st in elig]
-    chunks = np.concatenate(
-        [st["out"][:k * dans.CHUNK].reshape(k, dans.CHUNK)
-         for st, k in zip(elig, counts)])
-    _stash_ans0(elig, counts, shard_ans0_encode(chunks, mesh))
+    elig, counts, chunks = _full_chunks(states, ANS0_TYPE, dans.CHUNK)
+    if elig:
+        _stash_ans0(elig, counts, shard_ans0_encode(chunks, mesh))
 
 
 def compress_l5_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
@@ -498,3 +505,147 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
 
     return b"".join(np.asarray(out_rows[bi]).tobytes()
                     for bi in range(len(frames)))
+
+
+# ---------------------------------------------------------------------------
+# the level-2, 3 and 6 containers: host transforms, the entropy stage of
+# every block in one call on the card each way
+# ---------------------------------------------------------------------------
+
+CHAIN_L2 = "DNA+LZ"
+ENTROPY_L2 = "HUFFMAN"
+CHAIN_L3 = "TEXT+UTF+PACK+MM+LZX"
+ENTROPY_L3 = "HUFFMAN"
+CHAIN_L6 = "TEXT+UTF+BWT+SRT+ZRLT"
+ENTROPY_L6 = "FPAQ"
+
+
+def prepare_huffman_batch_mesh(states: list, mesh) -> None:
+    """compressed_stream.prepare_huffman_batch over the mesh: every
+    eligible block's full 16 KiB chunks in one encode call (kernel D),
+    ops enabled or not."""
+    elig, counts, chunks = _full_chunks(states, HUFFMAN_TYPE, dhuff.CHUNK)
+    if elig:
+        _stash_huffman(elig, counts, shard_huffman_encode(chunks, mesh))
+
+
+def prepare_fpaq_batch_mesh(states: list, mesh) -> None:
+    """compressed_stream.prepare_fpaq_batch over the mesh: every FPAQ
+    block's bytes one stream, all in one encode call (kernel G), with no
+    gate on their number."""
+    elig = _fpaq_blocks(states)
+    if elig:
+        lens = np.array([st["post_len"] for st in elig], np.int64)
+        _stash_fpaq(elig, lens, shard_fpaq_encode(
+            _fpaq_streams(elig, lens), lens, mesh, FPAQ_CHUNK))
+
+
+def _compress_host_chain_mesh(data: bytes, block_size: int, mesh,
+                              chain: str, entropy: str,
+                              prepare_fn) -> bytes:
+    """The container of ``chain`` & ``entropy``: the transforms of each
+    block on the host, in block order (the reference's one task a block,
+    src/io/CompressedOutputStream.cpp:476-540), then the entropy stage
+    of every block in one call on the mesh (prepare_fn), then the
+    ordered commit. Byte-identical with the host writer's."""
+    if mesh is None:
+        mesh = block_mesh()
+    n = block_size
+    sink = _pyio.BytesIO()
+    w = CompressedWriter(sink, transform=chain, entropy=entropy,
+                         block_size=n, original_size=len(data),
+                         device=mesh[0])
+    t_type = transform_name_to_type(chain)
+    e_type = entropy_name_to_type(entropy)
+    states = [_encode_block_phase1(
+        np.frombuffer(data[pos:pos + n], np.uint8), b + 1, w.ctx, t_type,
+        e_type, slot_caps=w.slot_caps[b % w.jobs])
+        for b, pos in enumerate(range(0, len(data), n))]
+    prepare_fn(states, mesh)
+    w.commit_states(states)
+    w.close()
+    return sink.getvalue()
+
+
+def _decompress_host_chain_mesh(blob: bytes, mesh, key: str,
+                                flush) -> bytes:
+    """Decode a container whose transforms run on the host through the
+    container's reader, its entropy decoders queuing the card's work of
+    every block in the sink under ``key``; flush(entries, mesh) decodes
+    it all in one call on the mesh once every block is read, then each
+    block's inverse transforms run on the host."""
+    if mesh is None:
+        mesh = block_mesh()
+    r = CompressedReader(blob, device=mesh[0],
+                         decode_sinks={key: lambda e: flush(e, mesh)},
+                         sink_window=MAX_BLOCK_ID)
+    return r.read_all()
+
+
+def compress_l2_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
+    """The level-2 container (DNA+LZ & HUFFMAN): DNA and LZ on the host,
+    the Huffman stage of every block in one call (kernel D) on the
+    mesh's card. Byte-identical with the host writer's."""
+    return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L2,
+                                     ENTROPY_L2, prepare_huffman_batch_mesh)
+
+
+def _flush_huffman(entries: list, mesh) -> None:
+    """The queued full chunks of every Huffman block in one decode call
+    (kernel E)."""
+    huffman_flush_sink(entries,
+                       lambda *a: shard_huffman_decode(*a, mesh))
+
+
+def decompress_l2_mesh(blob: bytes, mesh=None) -> bytes:
+    """Decode a level-2 or level-3 container: the Huffman chunk headers
+    parsed on the host (HuffmanDecoder, natively in csrc/huff_parse.cpp),
+    every full chunk of the file in one decode call (kernel E) on the
+    mesh's card, then each block's inverse transforms on the host (the
+    block header names them, so one decoder serves both chains)."""
+    return _decompress_host_chain_mesh(blob, mesh, "_huffDecodeSink",
+                                       _flush_huffman)
+
+
+def compress_l3_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
+    """The level-3 container (the reference's default level,
+    TEXT+UTF+PACK+MM+LZX & HUFFMAN): the transforms on the host, the
+    Huffman stage of every block in one call (kernel D) on the mesh's
+    card. Byte-identical with the host writer's."""
+    return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L3,
+                                     ENTROPY_L3, prepare_huffman_batch_mesh)
+
+
+def decompress_l3_mesh(blob: bytes, mesh=None) -> bytes:
+    """Decode a level-3 container: decompress_l2_mesh."""
+    return decompress_l2_mesh(blob, mesh)
+
+
+def compress_l6_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
+    """The level-6 container (TEXT+UTF+BWT+SRT+ZRLT & FPAQ): the
+    transforms on the host, the FPAQ stage of every block, one stream a
+    block, in one call (kernel G) on the mesh's card. Byte-identical
+    with the host writer's."""
+    return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L6,
+                                     ENTROPY_L6, prepare_fpaq_batch_mesh)
+
+
+def _flush_fpaq(entries: list, mesh) -> None:
+    """Every queued FPAQ block one stream, every chunk of every stream
+    in one decode call (kernel H)."""
+    _ops.count("l6_decode_device_blocks", len(entries))
+    lens = np.array([len(out) for out, _ in entries], np.int64)
+    dec = shard_fpaq_decode([chunks for _, chunks in entries], lens, mesh,
+                            efpaq.DEFAULT_CHUNK_SIZE)
+    for (out, _), row in zip(entries, dec):
+        out[:] = row[:len(out)]
+
+
+def decompress_l6_mesh(blob: bytes, mesh=None) -> bytes:
+    """Decode a level-6 container: the FPAQ chunk framing parsed on the
+    host, every chunk of every block (one stream a block) in one decode
+    call (kernel H) on the mesh's card, then each block's inverse
+    transforms (ZRLT, SRT, BWT, UTF, TEXT) on the host. Counts the
+    blocks it decodes on the card as l6_decode_device_blocks."""
+    return _decompress_host_chain_mesh(blob, mesh, "_fpaqDecodeSink",
+                                       _flush_fpaq)

@@ -1,6 +1,10 @@
 """PyTorch port of the FPAQ encode (kanzi_tpu_torch.ops.fpaq and the
-container's prepare_fpaq_batch) against the JAX package, bit for bit:
-the format is integer-only, so every tolerance here is exact equality.
+container's prepare_fpaq_batch) and of the lockstep FPAQ decode (kernel
+H) against the JAX package, bit for bit: the format is integer-only, so
+every tolerance here is exact equality. The decode is held against
+kanzi_tpu's numpy model decode_streams_np chunk by chunk (from its state,
+through fpaq_state_from_limbs), against decode_batch_jnp (JAX on the CPU)
+once, and against the host decoder where a payload runs out.
 
 The JAX package's kernel runs only on a TPU; on the CPU its
 fpaq_encode_batch takes the numpy lockstep model _encode_batch_np, the
@@ -12,7 +16,7 @@ machine without JAX:
 
     KANZI_TEST_TPU=1 python -m pytest -m needs_cuda tests/test_torch_fpaq.py
 
-The plain version costs about a millisecond per byte here (8 bit steps
+The plain versions cost about a millisecond per byte here (8 bit steps
 of ~30 small ops), so the streams are a few KiB.
 """
 
@@ -311,4 +315,272 @@ def test_kernel_matches_plain_on_cuda(cuda_device, case):
     ref = tf.fpaq_encode_plain(streams, lens, chunk_win, cap)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+# ---------------------------------------------------------------------------
+# H. decode
+# ---------------------------------------------------------------------------
+
+def _decode_data():
+    """Ragged streams, one of them over 3 chunks of CH: text-like,
+    random, all zero, skewed, one byte."""
+    rng = np.random.default_rng(12)
+    return [rng.integers(97, 123, 2 * CH + 700).astype(np.uint8),
+            rng.integers(0, 256, CH + 1).astype(np.uint8),
+            np.zeros(1500, np.uint8),
+            np.minimum(rng.geometric(0.1, 2 * CH), 255).astype(np.uint8),
+            np.array([0xC3], np.uint8)]
+
+
+def _frames(datas):
+    """Each stream through the host coder (chunks of fq.DEFAULT_CHUNK_SIZE)
+    and its framing read back by the host decoder into a sink, as the
+    level-6 mesh decode reads it: a chunk's (primed current, payload
+    bytes after the 7 priming bytes)."""
+    from kanzi_tpu_torch.bitstream import BitReader
+    from kanzi_tpu_torch.core.context import Context
+    out = []
+    for d in datas:
+        w = BitWriter()
+        enc = fq.FPAQEncoder(w)
+        enc.encode(d)
+        enc.dispose()
+        sink = []
+        fq.FPAQDecoder(BitReader(w.getvalue()),
+                       Context({"_fpaqDecodeSink": sink})).decode(len(d))
+        (_, chunks), = sink
+        assert len(chunks) == -(-len(d) // fq.DEFAULT_CHUNK_SIZE)
+        out.append(chunks)
+    return out
+
+
+def _rows(frames) -> tuple:
+    """Streams' FPAQ chunks as the decoder reads them, frames[s] =
+    [(primed current, the payload bytes after the 7 priming bytes)] a
+    chunk, in decode_batch_jnp's layout: per chunk index k, [b, W_k] u32
+    payload words and [b] u64 currents. A row holds its chunk's whole
+    big-endian words, zeros after them: the host decoder reads zero
+    words once fewer than 4 payload bytes are left, never a payload's
+    last size % 4 bytes."""
+    pays, curs = [], []
+    for k in range(max((len(f) for f in frames), default=0)):
+        chunks = [f[k] if k < len(f) else (0, b"") for f in frames]
+        pay = np.zeros((len(frames), max(1, max(len(x) // 4
+                                                for _, x in chunks))),
+                       np.uint32)
+        for j, (_, x) in enumerate(chunks):
+            pay[j, :len(x) // 4] = np.frombuffer(x, ">u4", len(x) // 4)
+        pays.append(pay)
+        curs.append(np.array([c for c, _ in chunks], np.uint64))
+    return pays, curs
+
+
+def _one_chunk(pay, cur, lens_k, state):
+    """fpaq_decode of one chunk a stream (chunk_bytes past every length)
+    from ``state``: row s is chunk s."""
+    b, w = pay.shape
+    return tf.fpaq_decode(
+        torch.from_numpy(pay.view(np.int32).reshape(-1).copy()),
+        torch.arange(b, dtype=torch.int64) * w,
+        torch.full((b,), w, dtype=torch.int64),
+        torch.from_numpy(cur.astype(np.int64)),
+        torch.arange(b, dtype=torch.int64),
+        torch.from_numpy(lens_k.astype(np.int64)), CH, state)
+
+
+@pytest.mark.timeout(300)
+def test_decode_matches_jax_model_chunk_by_chunk(jf, monkeypatch):
+    """fpaq_decode_batch (the plain version, one call for all chunks of
+    all streams) returns the input of 5 ragged streams (1 byte to 3
+    chunks of 2 KiB; random, zero, skewed). Chunk by chunk, the plain
+    version started from kanzi_tpu's state (fpaq_state_from_limbs)
+    gives kanzi_tpu.ops.fpaq.decode_streams_np's bytes, words consumed
+    and state after the chunk."""
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    datas = _decode_data()
+    lens = np.array([len(d) for d in datas])
+    frames = _frames(datas)
+    pays, curs = _rows(frames)
+    tops.reset_counters()
+    out = tf.fpaq_decode_batch(pays, curs, lens, CH, "cpu")
+    assert tops.COUNTERS == {"fpaq_decode_plain": 1}
+    assert out.shape == (5, lens.max())
+    for j, d in enumerate(datas):
+        assert np.array_equal(out[j, :len(d)], d), j
+        assert not out[j, len(d):].any()
+    state = jf.init_state(len(datas))
+    for k in range(3):
+        lens_k = np.clip(lens - k * CH, 0, CH)
+        got, consumed, got_state = _one_chunk(
+            pays[k], curs[k], lens_k, tf.fpaq_state_from_limbs(state))
+        want, widx, state = jf.decode_streams_np(
+            pays[k], curs[k], lens_k, tuple(np.copy(x) for x in state[:5]))
+        assert np.array_equal(got.numpy(), want[:, :got.shape[1]])
+        live = lens_k > 0
+        assert np.array_equal(consumed.numpy()[live], widx[live])
+        for g, w in zip(got_state, tf.fpaq_state_from_limbs(state)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.timeout(300)
+def test_decode_records_match_padded_rows(monkeypatch):
+    """fpaq_decode_records (the chunk records flat, flat_records, as the
+    level-6 mesh decode passes them) and fpaq_decode_batch (the same
+    chunks in decode_batch_jnp's padded rows) both return the ragged
+    streams' input."""
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    datas = _decode_data()
+    lens = np.array([len(d) for d in datas])
+    frames = _frames(datas)
+    got = tf.fpaq_decode_records(frames, lens, CH, "cpu")
+    pays, curs = _rows(frames)
+    assert np.array_equal(got, tf.fpaq_decode_batch(pays, curs, lens, CH,
+                                                    "cpu"))
+    for j, d in enumerate(datas):
+        assert np.array_equal(got[j, :len(d)], d), j
+
+
+@pytest.mark.timeout(300)
+def test_decode_matches_decode_batch_jnp(jf, monkeypatch):
+    """One small case against kanzi_tpu.ops.fpaq_jnp.decode_batch_jnp
+    (JAX on the CPU): 2 streams, one over 2 chunks of 1 KiB, one of 1
+    byte."""
+    from kanzi_tpu.ops import fpaq_jnp as fj
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", 1024)
+    datas = [np.minimum(np.random.default_rng(3).geometric(0.2, 1500), 255)
+             .astype(np.uint8), np.array([7], np.uint8)]
+    lens = np.array([1500, 1])
+    pays, curs = _rows(_frames(datas))
+    got = tf.fpaq_decode_batch(pays, curs, lens, 1024, "cpu")
+    assert np.array_equal(got, fj.decode_batch_jnp(pays, curs, lens, 1024))
+    assert np.array_equal(got[0], datas[0]) and got[1, 0] == 7
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("cut", [0, 4, 5, 9])
+def test_decode_through_the_last_payload_words(jf, monkeypatch, cut):
+    """A chunk whose payload is cut short by ``cut`` bytes (0: the whole
+    payload, whose last 7 bytes are the dispose's low): the decoder
+    reads its whole big-endian words, then zero words, as the host
+    decoder (FPAQDecoder, the reference) does; the plain version's
+    bytes and consumed words equal the host decoder's, and
+    decode_streams_np's on the same words."""
+    from kanzi_tpu_torch.bitstream import BitReader
+    from kanzi_tpu_torch.entropy import utils as eu
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    data = np.random.default_rng(4).integers(0, 256, 1800).astype(np.uint8)
+    (prime, buf), = _frames([data])[0]
+    buf = buf[:len(buf) - cut]
+    w = BitWriter()
+    eu.write_varint(w, len(buf))
+    w.write_bits(prime, 56)
+    w.write_bytes(buf)
+    w.write_bits(0, 64)
+    host = fq.FPAQDecoder(BitReader(w.getvalue())).decode(len(data))
+    if cut == 0:
+        assert np.array_equal(host, data)
+    pays, curs = _rows([[(prime, buf)]])
+    got, consumed, _ = _one_chunk(pays[0], curs[0], np.array([len(data)]),
+                                  None)
+    assert np.array_equal(got[0].numpy(), host)
+    want, widx, _ = jf.decode_streams_np(pays[0], curs[0],
+                                         np.array([len(data)]),
+                                         jf.init_state(1))
+    assert np.array_equal(want[0], host)
+    assert int(consumed[0]) == int(widx[0])
+    assert int(consumed[0]) >= len(buf) // 4        # every word read
+
+
+@pytest.mark.timeout(300)
+def test_round_trip_plain_encode_decode(monkeypatch):
+    """G's plain encode (fpaq_encode_batch, 3 streams over up to 3 chunks
+    of 2 KiB) framed as the container frames it (_stash_fpaq), then
+    H's plain decode (fpaq_decode_batch): the input back."""
+    monkeypatch.setattr(cs, "FPAQ_CHUNK", CH)
+    datas = _decode_data()[:3]
+    lens = np.array([len(d) for d in datas])
+    streams = np.zeros((3, lens.max()), np.uint8)
+    for j, d in enumerate(datas):
+        streams[j, :len(d)] = d
+    states = [{} for _ in datas]
+    cs._stash_fpaq(states, lens, tf.fpaq_encode_batch(streams, lens, CH,
+                                                      "cpu"))
+    frames = []
+    for st in states:
+        bufs, bound_lows, final = st["prepared_entropy"]
+        lows = bound_lows + [final]
+        chunks = []
+        for words, low in zip(bufs, lows):
+            tail = words + low.to_bytes(7, "big")
+            chunks.append((int.from_bytes(tail[:7], "big"),
+                           tail[7:7 + len(words)]))
+        frames.append(chunks)
+    pays, curs = _rows(frames)
+    out = tf.fpaq_decode_batch(pays, curs, lens, CH, "cpu")
+    for j, d in enumerate(datas):
+        assert np.array_equal(out[j, :len(d)], d), j
+
+
+@pytest.mark.timeout(60)
+def test_decode_wrapper_checks_its_inputs():
+    i64 = torch.zeros(2, dtype=torch.int64)
+    pay = torch.zeros(8, dtype=torch.int32)
+    lens = torch.tensor([3, 0])
+    first = torch.tensor([0, 1])
+    args = (pay, i64, i64 + 4, i64, first, lens)
+    out, consumed, _ = tf.fpaq_decode(*args, CH)
+    assert out.shape == (2, 3) and consumed.shape == (2,)
+    with pytest.raises(ValueError, match="pay"):
+        tf.fpaq_decode(pay.long(), *args[1:], CH)
+    with pytest.raises(ValueError, match="chunk_nw"):
+        tf.fpaq_decode(pay, i64, i64[:1], *args[3:], CH)
+    with pytest.raises(ValueError, match="chunk_bytes"):
+        tf.fpaq_decode(*args, 0)
+    with pytest.raises(ValueError, match="outside"):
+        tf.fpaq_decode(pay, i64 + 5, i64 + 4, *args[3:], CH)
+    with pytest.raises(ValueError, match="outside"):
+        tf.fpaq_decode(*args[:4], first + 2, lens, CH)
+    with pytest.raises(ValueError, match="probs"):
+        tf.fpaq_decode(*args, CH, tf.fpaq_init_state(2)[:2]
+                       + (torch.zeros((2, 1024), dtype=torch.int64),))
+    with pytest.raises(ValueError, match="no kernel"):
+        tf.fpaq_decode(*(a.to("meta") for a in args), CH)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", ["ragged", "cut", "zeros", "from_state"])
+def test_decode_kernel_matches_plain_on_cuda(cuda_device, case,
+                                             monkeypatch):
+    """Kernel H on the card against its plain version on the host's CPU,
+    bytes, consumed words and end state: the ragged streams of
+    _decode_data over up to 3 chunks; one whose payload is cut 9 bytes
+    short (zero words read past it); an all-zero stream; and the same
+    ragged streams from a state that is not the start's."""
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    datas = _decode_data()
+    if case == "zeros":
+        datas = [np.zeros(3 * CH, np.uint8)]
+    frames = _frames(datas)
+    if case == "cut":
+        frames = [[(c, x[:len(x) - 9]) for c, x in f] for f in frames]
+    lens = np.array([len(d) for d in datas])
+    pays, curs = _rows(frames)
+    state = None
+    if case == "from_state":
+        rng = np.random.default_rng(5)
+        low, high, probs = tf.fpaq_init_state(len(datas))
+        state = (low, high, torch.from_numpy(
+            rng.integers(1, 65472, probs.shape).astype(np.int32)))
+    args = [torch.from_numpy(a)
+            for a in tf.decode_layout(pays, curs, lens, CH)]
+    ref = tf.fpaq_decode(*args, CH, state)
+    got = tf.fpaq_decode(*(a.to(cuda_device) for a in args), CH,
+                         None if state is None
+                         else tuple(t.to(cuda_device) for t in state))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    for g, r in zip(got[2], ref[2]):
         assert torch.equal(g.cpu(), r)
