@@ -53,7 +53,16 @@ Phases (each raises on failure, so any failure exits non-zero):
    then timed at those whole streams, its output held against the
    input, with ns a bit step, its step as ptxas scheduled it
    (sass_step) and its chain floor, and the native host decoder timed
-   on the same streams. The SBRT
+   on the same streams. I and J (the CM encode and decode, cm_encode
+   and cm_decode) against their plain versions on the card at 16
+   streams of 4 KiB (words, counts, bytes, words consumed and end
+   state, counters included), and in two workers started in this phase
+   on the host's CPU at the main path's 16 streams of 4 MiB cut to their
+   first 32 KiB (J on I's whole payload); then each timed at those
+   whole streams, I's bytes held against the native CM coder's and J's
+   output against the input, with ns a bit step, its byte loop as ptxas
+   scheduled it (sass_loop) and its chain floor, the native coder and
+   decoder timed on the same streams. The SBRT
    kernels (the forward's sbrt_occ and sbrt_entry, whose entry states
    are held against segment_states_plain, and sbrt_fwd; the inverse's
    sbrt_inv) the same way: against their plain versions on the card at
@@ -101,17 +110,20 @@ Phases (each raises on failure, so any failure exits non-zero):
    one torch.profiler / cProfile breakdown of each direction; then the
    fused chain of kanzi_tpu's bench (pipeline.l5_chain: BWT, RANK, ZRLT
    and the ANS0 encode of 16 blocks of 1 MiB on the card), in MiB/s;
-9. the level-2, 3 and 6 mesh chains (compress_l2_mesh,
-   compress_l3_mesh, compress_l6_mesh and their decompress_*_mesh):
-   the corpus at 4 MiB blocks and back, the counters reset before and
-   read after each call; require the container byte-identical with the
-   host writer's, the mesh decode and the host reader to return the
-   input, D and E launched for levels 2 and 3 (E once, every full chunk
-   of the file in one launch, and no chunk coded on the host), G and H
-   for level 6 (H once) with all 16 blocks decoded on the card
-   (l6_decode_device_blocks); both rates beside the host path's,
-   medians of 3 runs each in turns, and one torch.profiler / cProfile
-   breakdown each of the level-2 and level-6 decodes;
+9. the level-2, 3, 6 and 7 mesh chains (compress_l2_mesh,
+   compress_l3_mesh, compress_l6_mesh, compress_l7_mesh and their
+   decompress_*_mesh): the corpus at 4 MiB blocks and back, the
+   counters reset before and read after each call; require the
+   container byte-identical with the host writer's, the mesh decode and
+   the host reader to return the input, D and E launched for levels 2
+   and 3 (E once, every full chunk of the file in one launch, and no
+   chunk coded on the host), G and H for level 6 (H once) with all 16
+   blocks decoded on the card (l6_decode_device_blocks), I and J once
+   each for level 7 with all 16 blocks decoded on the card
+   (l7_decode_device_blocks) and none coded on the host
+   (cm_host_blocks); both rates beside the host path's, medians of 3
+   runs each in turns, and one torch.profiler / cProfile breakdown each
+   of the level-2, 6 and 7 decodes;
 10. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
@@ -121,9 +133,9 @@ the plain version's, its bound and the library call's; the last line is
 non-zero before printing either. Scratch files go to build/chip_smoke/.
 (``chip_smoke.py --plain FILE`` is the worker mode of phase 4.
 ``chip_smoke.py --kernels`` runs phases 1-3 and phase 4's kernels A-E,
-G, H and SBRT only (G and H against their plain versions on the card
-at SMALL_FPAQ and timed at 16 x 4 MiB against the native coders, with
-G's crossover;
+G, H, I, J and SBRT only (G and H against their plain versions on the
+card at SMALL_FPAQ, I and J at SMALL_CM, and timed at 16 x 4 MiB against
+the native coders, with G's crossover;
 SBRT's small checks and its timed RANK input; no plain workers), prints
 their lines and no JSON: a short check of those kernels while one of
 them is redesigned. ``chip_smoke.py --containers``
@@ -173,7 +185,8 @@ INT32_OPS_PER_S = 67e12 / 4
 OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
        "huff_code_tables": 4, "huff_pack": 12, "huff_decode": 8,
        "ans1_gather": 11, "ans1_chain": 11, "fpaq_encode": 8 * 24,
-       "fpaq_decode": 8 * 24, "sbrt": 10}
+       "fpaq_decode": 8 * 24, "sbrt": 10, "cm_encode": 8 * 64,
+       "cm_decode": 8 * 64}
 # D's table build, per chunk: a sort of its 256 byte counts (256 x 8
 # compare-exchanges of 3 operations); per symbol slot its canonical
 # code (count its length, its rank among the symbols of that length, the
@@ -185,6 +198,12 @@ NODE_OPS = 20
 # and per rank its walk visits: test r > 0, read the symbol below and its
 # q, compare, move it up (two writes)
 SBRT_VISIT_OPS = 6
+# I's and J's bit step (64-bit operations counted twice): the bit (2, I
+# only) or the compare with current (2, J only), counter1's row (1), its
+# three loads (3), p (4), counter2's index (4) and two loads (2), p12 (5),
+# the split (subtract, shift, multiply, shift, add: 12), the bound kept
+# (6), four counter updates and stores (20), the context (1), the flush
+# test (5); the flush's own work, data-dependent, not counted
 REPLACES = {
     "ans0_encode_scan": ("ans0.cu", "kanzi_tpu/ops/ans.py:120"),
     "ans0_compact": ("ans0.cu", "kanzi_tpu/ops/ans.py:210"),
@@ -200,6 +219,9 @@ REPLACES = {
     "fpaq_encode": ("fpaq.cu", "kanzi_tpu/ops/fpaq.py:286"),
     # H: XLA in kanzi_tpu, no Pallas kernel
     "fpaq_decode": ("fpaq_dec.cu", "kanzi_tpu/ops/fpaq_jnp.py:216"),
+    # I and J: XLA in kanzi_tpu, no Pallas kernel
+    "cm_encode": ("cm.cu", "kanzi_tpu/ops/cm_jnp.py:186"),
+    "cm_decode": ("cm.cu", "kanzi_tpu/ops/cm_jnp.py:291"),
     # SBRT: the forward's three kernels (entry states, then segments)
     # and the inverse
     "sbrt_occ": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
@@ -225,6 +247,15 @@ TABLE_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
 # shared load, one in each of the 8 unrolled bit steps of a byte (a step
 # is counted without its flush, whose branch it takes)
 FPAQ_DEC_ANCHOR = r"LDS\.U16 "
+# I's and J's byte loops (sass_loop), each found by an instruction in it:
+# I's shuffle of lane 0's probability, J's load of counter2's first entry
+# (counter2 sits at byte 0x20200 of shared memory, after counter1)
+CM_ANCHORS = {"cm_encode": r"SHFL\.IDX PT, R\d+, R\d+, RZ, 0x1f",
+              "cm_decode": r"LDS R\d+, \[R\d+\+0x20200\]"}
+SMALL_CM = (16, 4 << 10)            # I, J against their plain versions on the
+                                    # card: streams, bytes
+HOST_CM_BYTES = 32 << 10            # and on the CPU: each of the 16 main-path
+                                    # streams' first bytes
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
 WORK = ROOT / "build" / "chip_smoke"
 
@@ -684,6 +715,7 @@ def plain_worker(path: Path) -> None:
     torch.set_num_threads(1)
     sys.path.insert(0, str(ROOT))
     from kanzi_tpu_torch.ops import ans1 as dans1
+    from kanzi_tpu_torch.ops import cm as dcm
     from kanzi_tpu_torch.ops import fpaq as dfp
     from kanzi_tpu_torch.ops import sbrt as dsb
     a = torch.load(path)
@@ -697,6 +729,15 @@ def plain_worker(path: Path) -> None:
     elif a["kind"] == "fpaq_decode":
         out = dfp.fpaq_decode_plain(*a["args"], a["chunk"],
                                     *dfp.fpaq_init_state(len(a["args"][5])))
+    elif a["kind"] == "cm_encode":
+        words, cnt, st = dcm.cm_encode_plain(
+            a["streams"], a["lens"], a["cap"],
+            dcm.cm_init_state(len(a["lens"]), 6))
+        out = (words, cnt, *st)
+    elif a["kind"] == "cm_decode":
+        dec, consumed, st = dcm.cm_decode_plain(
+            *a["args"], dcm.cm_init_state(len(a["args"][4]), 6))
+        out = (dec, consumed, *st)
     else:
         out = dfp.fpaq_encode_plain(a["streams"], a["lens"], a["chunk_win"],
                                     a["cap"])
@@ -745,6 +786,7 @@ def start_worker(a: dict) -> tuple:
 WORKER_KERNELS = {"ans1_encode_scan": ("ans1_gather", "ans1_chain"),
                   "fpaq_encode": ("fpaq_encode",),
                   "fpaq_decode": ("fpaq_decode",),
+                  "cm_encode": ("cm_encode",), "cm_decode": ("cm_decode",),
                   "sbrt": ("sbrt_occ", "sbrt_entry", "sbrt_fwd", "sbrt_inv")}
 
 
@@ -1023,6 +1065,154 @@ def check_fpaq_decode_kernel(corpus, dfp, native, dev, workers,
         **bound("fpaq_decode", moved, out.numel()))}
 
 
+def cm_args(enc, lens, dcm, dev) -> list:
+    """I's outputs (cm_encode_batch: bufs, low56) as J's flat arguments on
+    dev: each stream's record as the decoder reads it (its words and its
+    final low, 7 bytes, after the 7 that prime its current), flat
+    (ops.cm.flat_records), and lens."""
+    recs = []
+    for buf, low in zip(enc[0], enc[1]):
+        tail = buf + low.to_bytes(7, "big")
+        recs.append((int.from_bytes(tail[:7], "big"), tail[7:]))
+    return [torch.from_numpy(a).to(dev) for a in (
+        *dcm.flat_records(recs), np.asarray(lens, np.int64))]
+
+
+def cm_moved(state, n: int) -> int:
+    """Bytes of n streams' CM state, read once and written once."""
+    return 2 * n * sum(t[0].numel() * t.element_size() for t in state)
+
+
+def check_cm_kernels(corpus, dcm, native, dev, workers, full_got) -> dict:
+    """I and J against their plain versions on the card at SMALL_CM (the
+    first 4 KiB of each main-path stream): I's words, counts and end
+    state; J, on I's output framed as the decoder reads it, its bytes
+    (the input), words consumed and end state. Then each timed at the
+    main path's shape, the corpus as 16 streams of 4 MiB (one CM block
+    each): I's bytes and final low must equal the native host coder's,
+    J's output the input; the native coder and decoder timed on the same
+    streams. With workers (not with --kernels), two workers hold I's and
+    J's outputs against their plain versions on the host's CPU, at each
+    main-path stream's first HOST_CM_BYTES: I on those bytes, J on I's
+    whole payload, its output cut there."""
+    from kanzi_tpu_torch.core.context import Context
+    from kanzi_tpu_torch.entropy.native_bin import KIND_CM, _new_handle
+    host = np.frombuffer(corpus, np.uint8).reshape(-1, BLOCK)
+    n, size = SMALL_CM
+    rows = np.ascontiguousarray(host[:n, :size])
+    small = torch.from_numpy(rows).to(dev)
+    lens = torch.full((n,), size, dtype=torch.int64, device=dev)
+    st = dcm.cm_init_state(n, 6, dev)
+    got = dcm.cm_encode(small, lens, size + 64, st)
+    ref, enc_plain_ms = once_ms(
+        lambda: dcm.cm_encode_plain(small, lens, size + 64, st))
+    err_i = max(max_abs_err(g, r) for g, r in zip(
+        (got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])))
+    args = cm_args(dcm.cm_encode_batch(rows, np.full(n, size), 6, dev),
+                   np.full(n, size), dcm, dev)
+    got = dcm.cm_decode(*args, st)
+    ref, dec_plain_ms = once_ms(lambda: dcm.cm_decode_plain(*args, st))
+    err_j = max(max_abs_err(g, r) for g, r in zip(
+        (got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])))
+    if not np.array_equal(got[0].cpu().numpy(), rows):
+        fail("cm_decode does not return I's input at SMALL_CM")
+
+    b = len(host)
+    lens_np = np.full(b, BLOCK)
+    streams = torch.from_numpy(host.copy()).to(dev)
+    lens = torch.full((b,), BLOCK, dtype=torch.int64, device=dev)
+    st = dcm.cm_init_state(b, 6, dev)
+    if workers is not None:
+        cut = np.ascontiguousarray(host[:, :HOST_CM_BYTES])
+        workers["cm_encode"] = start_worker({
+            "kind": "cm_encode", "streams": torch.from_numpy(cut),
+            "lens": torch.full((b,), HOST_CM_BYTES, dtype=torch.int64),
+            "cap": HOST_CM_BYTES + 64})
+        words, cnt, end = dcm.cm_encode(
+            streams[:, :HOST_CM_BYTES].contiguous(),
+            lens.clamp(max=HOST_CM_BYTES), HOST_CM_BYTES + 64, st)
+        full_got["cm_encode"] = [t.cpu() for t in (words, cnt, *end)]
+        del words, cnt, end
+    ms_i = median_ms(lambda: dcm.cm_encode(streams, lens, BLOCK + 64, st), 3)
+    words, cnt, end = dcm.cm_encode(streams, lens, BLOCK + 64, st)
+    time.sleep(ms_i / 4000)
+    mhz_i = sm_clock_mhz()
+    torch.cuda.synchronize()
+    total = int(cnt.sum())
+    moved_i = nbytes(streams, lens, cnt) + 4 * total + cm_moved(st, b)
+    del words, cnt, end
+    enc = dcm.cm_encode_batch(host, lens_np, 6, dev)
+    if any(enc[2]):
+        fail("cm_encode: a 4 MiB stream overflowed its L + 64 words")
+    ctx = Context({"bsVersion": 6})
+    enc_s = dec_s = 0.0
+    for i, row in enumerate(host):
+        h = _new_handle(KIND_CM, ctx)
+        t0 = time.perf_counter()
+        buf, n_out = native.bincoder_enc_chunk(h, row)
+        enc_s += time.perf_counter() - t0
+        low = native.bincoder_get_low(h) | 0xFFFFFF
+        native.bincoder_free(h)
+        if enc[0][i] != bytes(buf[:n_out]) or enc[1][i] != low:
+            fail(f"cm: stream {i} differs from the native CM coder")
+        tail = enc[0][i] + enc[1][i].to_bytes(7, "big")
+        payload = np.frombuffer(tail[7:] + bytes(8), np.uint8)
+        h = _new_handle(KIND_CM, ctx)
+        dec = np.empty(BLOCK, np.uint8)
+        t0 = time.perf_counter()
+        rc = native.bincoder_dec_chunk(h, payload, len(tail) - 7,
+                                       int.from_bytes(tail[:7], "big"), dec)
+        dec_s += time.perf_counter() - t0
+        native.bincoder_free(h)
+        if rc != 0 or not np.array_equal(dec, row):
+            fail(f"cm: the native decoder does not return stream {i}")
+    del streams
+    args = cm_args(enc, lens_np, dcm, dev)
+    if workers is not None:
+        cut = args[:4] + [args[4].clamp(max=HOST_CM_BYTES)]
+        workers["cm_decode"] = start_worker({
+            "kind": "cm_decode", "args": [a.cpu() for a in cut],
+            "shape": f"{b}x{HOST_CM_BYTES} of 4 MiB streams"})
+        out, consumed, end = dcm.cm_decode(*cut, st)
+        full_got["cm_decode"] = [t.cpu() for t in (out, consumed, *end)]
+        del cut, out, consumed, end
+    ms_j = median_ms(lambda: dcm.cm_decode(*args, st), 3)
+    out, consumed, _ = dcm.cm_decode(*args, st)
+    time.sleep(ms_j / 4000)
+    mhz_j = sm_clock_mhz()
+    torch.cuda.synchronize()
+    if not np.array_equal(out.cpu().numpy(), host):
+        fail("cm_decode does not return the 16 streams I encoded")
+    moved_j = nbytes(*args, out, consumed) + cm_moved(st, b)
+    from kanzi_tpu_torch.ops import _build
+    steps = 8 * BLOCK
+    res = {}
+    for k, ms, mhz, plain_ms, host_s, err, moved in (
+            ("cm_encode", ms_i, mhz_i, enc_plain_ms, enc_s, err_i, moved_i),
+            ("cm_decode", ms_j, mhz_j, dec_plain_ms, dec_s, err_j,
+             moved_j)):
+        n_ins, stall = sass_loop(_build.library_path("cm.cu"),
+                                 f"{k}_kernel", CM_ANCHORS[k])
+        log(f"kernel {k} ({'I' if k == 'cm_encode' else 'J'}): {b} streams "
+            f"of 4 MiB, {steps} bit steps each: kernel_ms {ms}, "
+            f"{1e6 * ms / steps:.2f} ns per bit step "
+            f"({ms * mhz / steps * 1e3:.1f} cycles at the {mhz} MHz SM "
+            f"clock read during a launch); ptxas's schedule (cuobjdump "
+            f"-sass): {n_ins} instructions and {stall} static stall cycles "
+            f"a byte without a flush ({stall / 8:.1f} a bit step), a chain "
+            f"floor of {BLOCK} x {stall} / {mhz} MHz = "
+            f"{BLOCK * stall / mhz / 1e3:.1f} ms before the shuffles' and "
+            f"shared loads' waits; plain_ms {plain_ms} at {n} streams of "
+            f"{size >> 10} KiB (once); native host coder "
+            f"{1000 * host_s / b:.3f} ms a stream, {1000 * host_s:.1f} ms "
+            f"for the {b}")
+        res[k] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                      **bound(k, moved, b * BLOCK))
+    log("kernel cm_encode: bytes and final lows == the native CM coder's; "
+        "cm_decode: output == the input")
+    return res
+
+
 def l5_rank_inputs(corpus, pp, dev):
     """The RANK input of the level-5 chain's blocks: the corpus's 4 MiB
     blocks through the device BWT and its block-codec header, [16, 4 MiB
@@ -1082,19 +1272,10 @@ def sm_clock_mhz() -> int:
         check=True).stdout.split()[0])
 
 
-def sass_step(lib: Path, kernel: str, anchor: str,
-              unrolled: int | None = None, taken: bool = False) -> tuple:
-    """(instructions, static stall cycles) of one step of `kernel` in the
-    built library, read from cuobjdump -sass: each instruction's second
-    64-bit word carries ptxas's stall count in bits 41-44. A step runs
-    from one instruction that matches the regex `anchor` (one a step)
-    to the next; the median over the unrolled loop's steps. Where the
-    kernel's one loop unrolls a known number of steps, `unrolled`, it
-    fails unless the anchor occurs exactly that often. With `taken`, a
-    step counts the path that takes each predicated forward branch
-    inside it (H: the bit steps without a flush), else every instruction
-    between its anchors. The waits on variable-latency results
-    (shuffles, shared-memory loads) are not in the count."""
+def sass_ins(lib: Path, kernel: str) -> list:
+    """The instructions of `kernel` in the built library, from cuobjdump
+    -sass: (address, text, ptxas's stall count, bits 41-44 of the
+    instruction's second 64-bit word) each."""
     from kanzi_tpu_torch.ops import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     lines = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -1109,6 +1290,59 @@ def sass_step(lib: Path, kernel: str, anchor: str,
         if inside and m:
             hi = int(re.search(r"0x[0-9a-f]+", lines[k + 1]).group(), 16)
             ins.append((int(m.group(1), 16), m.group(2), (hi >> 41) & 0xF))
+    return ins
+
+
+def sass_loop(lib: Path, kernel: str, anchor: str) -> tuple:
+    """(instructions, static stall cycles) of one pass of the loop of
+    `kernel` that holds the first instruction matching the regex
+    `anchor`: from the target of the first backward branch after it to
+    that branch, along the path that takes each forward branch that
+    skips no shared load (I and J: a byte of the loop, its flushes
+    skipped, I's predictor steps run). The waits on variable-latency
+    results (shuffles, shared-memory loads) are not in the count."""
+    ins = sass_ins(lib, kernel)
+    addr = [a for a, _, _ in ins]
+
+    def target(op):
+        m = re.match(r"(?:@!?U?P\d+ )?BRA (0x[0-9a-f]+)", op)
+        return int(m.group(1), 16) if m else None
+
+    a = next((k for k, (_, op, _) in enumerate(ins) if re.match(anchor, op)),
+             None)
+    if a is None:
+        fail(f"sass_loop: no {anchor} in {kernel}")
+    end = next((k for k in range(a, len(ins))
+                if (target(ins[k][1]) or addr[a] + 1) <= addr[a]), None)
+    if end is None:
+        fail(f"sass_loop: no loop around {anchor} in {kernel}")
+    k, n, st = addr.index(target(ins[end][1])), 0, 0
+    while k <= end:
+        n, st = n + 1, st + ins[k][2]
+        t = target(ins[k][1])
+        if t is not None and t > addr[k] and not any(
+                op.startswith("LDS") for _, op, _ in
+                ins[k + 1:addr.index(t)]):
+            k = addr.index(t)
+        else:
+            k += 1
+    return n, st
+
+
+def sass_step(lib: Path, kernel: str, anchor: str,
+              unrolled: int | None = None, taken: bool = False) -> tuple:
+    """(instructions, static stall cycles) of one step of `kernel` in the
+    built library, read from cuobjdump -sass: each instruction's second
+    64-bit word carries ptxas's stall count in bits 41-44. A step runs
+    from one instruction that matches the regex `anchor` (one a step)
+    to the next; the median over the unrolled loop's steps. Where the
+    kernel's one loop unrolls a known number of steps, `unrolled`, it
+    fails unless the anchor occurs exactly that often. With `taken`, a
+    step counts the path that takes each predicated forward branch
+    inside it (H: the bit steps without a flush), else every instruction
+    between its anchors. The waits on variable-latency results
+    (shuffles, shared-memory loads) are not in the count."""
+    ins = sass_ins(lib, kernel)
     at = [k for k, (_, op, _) in enumerate(ins) if re.match(anchor, op)]
     if len(at) < 2:
         fail(f"sass_step: no two {anchor} in {kernel}")
@@ -1323,10 +1557,10 @@ def check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate) -> None:
 
 
 def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
-    """Phase 9: the level-2, 3 and 6 mesh chains on the corpus at 4 MiB
-    blocks against the host path, each call with the counters reset
+    """Phase 9: the level-2, 3, 6 and 7 mesh chains on the corpus at 4
+    MiB blocks against the host path, each call with the counters reset
     just before and read just after; then one profile each of the
-    level-2 and level-6 decodes."""
+    level-2, 6 and 7 decodes."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     blocks = len(corpus) // BLOCK
@@ -1339,7 +1573,9 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
              pp.ENTROPY_L3, ("huff_code_tables", "huff_pack"),
              ("huff_decode",)),
             ("l6", pp.compress_l6_mesh, pp.decompress_l6_mesh, pp.CHAIN_L6,
-             pp.ENTROPY_L6, ("fpaq_encode",), ("fpaq_decode",))):
+             pp.ENTROPY_L6, ("fpaq_encode",), ("fpaq_decode",)),
+            ("l7", pp.compress_l7_mesh, pp.decompress_l7_mesh, pp.CHAIN_L7,
+             pp.ENTROPY_L7, ("cm_encode",), ("cm_decode",))):
         ops.reset_counters()
         blob, _ = timed(cm, corpus, BLOCK)
         enc = dict(ops.COUNTERS)
@@ -1359,12 +1595,22 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
         for k in dec_path:                 # every block's stage at once
             if dec[k] != 1:
                 fail(f"the {name} mesh decode launched {k} {dec[k]} times")
+        if name == "l7" and enc["cm_encode"] != 1:
+            fail(f"the l7 mesh encode launched cm_encode {enc['cm_encode']} "
+                 "times")
         if enc.get("huff_host_chunks", 0) or dec.get("huff_host_chunks", 0):
             fail(f"the {name} mesh chain coded Huffman chunks on the host")
         if name == "l6" and dec.get("l6_decode_device_blocks") != blocks:
             fail(f"the l6 mesh decode took {dec.get('l6_decode_device_blocks')}"
                  f" of the {blocks} blocks, each with an FPAQ payload, on "
                  "the card")
+        if name == "l7" and (dec.get("l7_decode_device_blocks") != blocks
+                             or enc.get("cm_host_blocks", 0)
+                             or dec.get("cm_host_blocks", 0)):
+            fail(f"the l7 mesh chain took "
+                 f"{dec.get('l7_decode_device_blocks')} of the {blocks} "
+                 "blocks, each with a CM payload, on the card, or coded "
+                 "CM blocks on the host")
         ops.disable()
         try:
             host = kanzi_tpu_torch.compress_bytes(corpus, chain, entropy,
@@ -1403,6 +1649,7 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
         blobs[name] = blob
     profile("l2 mesh decode", lambda: pp.decompress_l2_mesh(blobs["l2"]))
     profile("l6 mesh decode", lambda: pp.decompress_l6_mesh(blobs["l6"]))
+    profile("l7 mesh decode", lambda: pp.decompress_l7_mesh(blobs["l7"]))
 
 
 def report_kernels(kres: dict) -> None:
@@ -1417,6 +1664,10 @@ def report_kernels(kres: dict) -> None:
                                 "at 64 x 8 KiB",
                  "fpaq_decode": "16 streams of 4 MiB; plain on the card "
                                 "at 64 x 8 KiB, 2 KiB chunks",
+                 "cm_encode": "16 streams of 4 MiB; plain on the card at "
+                              "16 x 4 KiB",
+                 "cm_decode": "16 streams of 4 MiB; plain on the card at "
+                              "16 x 4 KiB",
                  }.get(k, r.get("shape", f"C={N_CHUNKS}"))
         if k.startswith("sbrt_"):
             shape = ("16 RANK inputs of 4 MiB + 33; plain on the card at "
@@ -1444,7 +1695,7 @@ def main(mode: str) -> None:
 
 
 def run(workers: dict, mode: str) -> None:
-    """Phases 1-10 (mode "full"); 1-4 for A-E, G, H and SBRT only
+    """Phases 1-10 (mode "full"); 1-4 for A-E, G-J and SBRT only
     ("kernels"); 1-3 and 5 ("containers")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
@@ -1454,6 +1705,7 @@ def run(workers: dict, mode: str) -> None:
     from kanzi_tpu_torch.ops import ans as dans
     from kanzi_tpu_torch.ops import ans1 as dans1
     from kanzi_tpu_torch.ops import bwt as dbwt
+    from kanzi_tpu_torch.ops import cm as dcm
     from kanzi_tpu_torch.ops import fpaq as dfp
     from kanzi_tpu_torch.ops import huffman as dhuff
     from kanzi_tpu_torch.ops import sbrt as dsb
@@ -1502,6 +1754,8 @@ def run(workers: dict, mode: str) -> None:
                                           full_got))
             kres.update(check_fpaq_decode_kernel(corpus, dfp, native, dev,
                                                  None, full_got))
+            kres.update(check_cm_kernels(corpus, dcm, native, dev, None,
+                                         full_got))
             kres.update(check_sbrt_kernels(rank_in, dsb, native, None,
                                            full_got))
             report_kernels(kres)
@@ -1513,6 +1767,8 @@ def run(workers: dict, mode: str) -> None:
                                       workers["fpaq_encode"][0], full_got))
         kres.update(check_fpaq_decode_kernel(corpus, dfp, native, dev,
                                              workers, full_got))
+        kres.update(check_cm_kernels(corpus, dcm, native, dev, workers,
+                                     full_got))
         kres.update(check_sbrt_kernels(rank_in, dsb, native,
                                        workers["sbrt"][0], full_got))
         del rank_in
@@ -1704,10 +1960,11 @@ def run(workers: dict, mode: str) -> None:
     # 8. the device level-5 chain, and the fused chain
     check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate)
 
-    # 9. the level-2, 3 and 6 mesh chains
+    # 9. the level-2, 3, 6 and 7 mesh chains
     check_mesh_chains(corpus, pp, launches, timed, rate)
 
-    # F, G, H and SBRT against their plain versions on the host's CPU
+    # F, G, H, I, J and SBRT against their plain versions on the host's
+    # CPU
     finish_plain_workers(workers, full_got, kres)
 
     # 10. no JAX, nothing of the JAX package

@@ -104,10 +104,30 @@ class BinaryEntropyDecoder(EntropyDecoder):
         self._low = 0
         self._high = TOP
 
+    def _cm_sink(self, count: int):
+        """The level-7 mesh decode's sink ("_cmDecodeSink" in the
+        context) where the predictor is CM and the block one chunk (count
+        below 2^26): the decoder then reads the chunk's framing and
+        queues (out, current, payload bytes, bsVersion) there. A CM block
+        that the sink cannot take is decoded here and counted as
+        cm_host_blocks."""
+        sink = self.ctx.get("_cmDecodeSink") if self.ctx else None
+        if sink is None:
+            return None
+        from kanzi_tpu_torch.entropy.cm import CMPredictor
+        if not isinstance(self.predictor, CMPredictor):
+            return None
+        if count >= MAX_CHUNK_SIZE:
+            from kanzi_tpu_torch import ops
+            ops.count("cm_host_blocks")
+            return None
+        return sink
+
     def decode(self, count: int) -> np.ndarray:
         if count >= MAX_BLOCK_SIZE:
             raise ValueError("Invalid block size parameter (max is 1<<30)")
         out = np.empty(count, dtype=np.uint8)
+        sink = self._cm_sink(count)
         length = _chunk_length(count)
         start = 0
         pred = self.predictor
@@ -117,6 +137,13 @@ class BinaryEntropyDecoder(EntropyDecoder):
             if sz_bytes > min(chunk_size << 5, (1 << 32) >> 3):
                 raise ValueError("Invalid binary entropy chunk size")
             current = self.ibs.read_bits(56)
+            if sink is not None:
+                # the sink's owner decodes every queued block, one stream a
+                # block, in one call (parallel.pipeline, kernel J): out
+                # stays unfilled until then
+                sink.append((out, current, self.ibs.read_bytes(sz_bytes),
+                             pred.bs_version))
+                return out
             buf = self.ibs.read_bytes(sz_bytes) + b"\x00" * 8
             low = self._low
             high = self._high

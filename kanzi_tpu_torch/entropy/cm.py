@@ -18,6 +18,7 @@ PSCALE = 65536
 class CMPredictor(Predictor):
     def __init__(self, ctx=None):
         bs_version = 7 if ctx is None else ctx.get_int("bsVersion", 7)
+        self.bs_version = bs_version
         self._c1 = 0
         self._c2 = 0
         self._ctx = 1

@@ -96,11 +96,14 @@ def new_encoder(obs: BitWriter, ctx: Context, etype: int) -> EntropyEncoder:
 
 def new_decoder(ibs: BitReader, ctx: Context, etype: int) -> EntropyDecoder:
     t = EntropyType(etype)
-    # FPAQDecoder queues its chunks in the level-6 mesh decode's sink
-    fpaq_sink = (t == EntropyType.FPAQ and ctx is not None
-                 and ctx.get("_fpaqDecodeSink") is not None)
+    # FPAQDecoder queues its chunks in the level-6 mesh decode's sink, the
+    # CM shell its payloads in the level-7 one's
+    sink_key = {EntropyType.FPAQ: "_fpaqDecodeSink",
+                EntropyType.CM: "_cmDecodeSink"}.get(t)
+    to_sink = (sink_key is not None and ctx is not None
+               and ctx.get(sink_key) is not None)
     if t in (EntropyType.FPAQ, EntropyType.CM, EntropyType.TPAQ,
-             EntropyType.TPAQX) and not fpaq_sink:
+             EntropyType.TPAQX) and not to_sink:
         from kanzi_tpu_torch.entropy import native_bin as nb
         if nb.native_bin_enabled():
             return nb.NativeBinDecoder(ibs, ctx, _native_kinds()[t])

@@ -13,6 +13,8 @@ Layout:
 - ops.ans1     interleaved 4-lane rANS order-1 chunk encode
 - ops.fpaq     FPAQ binary arithmetic encode and decode, one stream per
                block
+- ops.cm       CM (context-mixing) binary arithmetic encode and decode,
+               one stream per block
 - ops.sbrt     SBRT (MTF / RANK / TIMESTAMP) rank automaton, one per block
 - ops.bwt      suffix array, BWT forward and inverse (torch ops, no kernel)
 - ops._build   nvcc build + ctypes binding of csrc/*.cu
@@ -52,9 +54,11 @@ def device() -> torch.device:
 # kernel, and key + "_plain" where it takes the plain version for a CPU
 # tensor. The device BWT and the device level-5 chain count the blocks
 # they take ("bwt_forward_device", "l5_{encode,decode}_device_blocks"),
-# the level-6 mesh decode the blocks it decodes on the card
-# ("l6_decode_device_blocks"), the Huffman coder the full chunks it codes
-# on the host beside the kernels ("huff_host_chunks").
+# the level-6 and level-7 mesh decodes the blocks they decode on the card
+# ("l6_decode_device_blocks", "l7_decode_device_blocks"), the Huffman
+# coder the full chunks it codes on the host beside the kernels
+# ("huff_host_chunks"), the level-7 mesh chain the CM blocks it leaves to
+# the host coder ("cm_host_blocks").
 # Tests and chip_smoke.py read them to show which path ran.
 COUNTERS = {}
 _COUNT_LOCK = _threading.Lock()

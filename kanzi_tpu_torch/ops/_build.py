@@ -59,6 +59,16 @@ SIGNATURES = {
         # consts, n_chunks, q, states, vm, device, stream
         "ans1_chain": [_P, _I, _I, _P, _P, _I, _P],
     },
+    "cm.cu": {
+        # streams, lens, n_streams, ld, cap, words, cnt, low, high, counter1,
+        # counter2, c1, c2, run_mask, device, stream
+        "cm_encode": [_P, _P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _P],
+        # pay, off, nw, cur, lens, n_streams, ld, out, consumed, low, high,
+        # counter1, counter2, c1, c2, run_mask, device, stream
+        "cm_decode": [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _I, _P],
+    },
     "fpaq.cu": {
         # streams, lens, n_streams, lp, chunk_win, cap, words, win_cnt,
         # win_low, device, stream

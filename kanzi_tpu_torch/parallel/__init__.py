@@ -5,15 +5,16 @@ independent blocks fan out to worker threads and commit to the shared
 bitstream in block order (src/io/CompressedOutputStream.cpp:476-546,
 835-868). Here a batch of blocks runs as one pass on the card and the
 host commits the container in block order: the level-5 chain's
-transforms and entropy stage, and the entropy stage of the level-2, 3
-and 6 chains (parallel.pipeline). Their FPAQ decode runs kernel H on the
-card, where the container's FPAQ decode stays on the host's native
-coder, as in kanzi_tpu. The "block" mesh has one device; more than one
-card is ROADMAP item 14.
+transforms and entropy stage, and the entropy stage of the level-2, 3,
+6 and 7 chains (parallel.pipeline). Their FPAQ and CM decodes run
+kernels H and J on the card, where the container's stay on the host's
+native coders, as in kanzi_tpu. The "block" mesh has one device; more
+than one card is ROADMAP item 14.
 """
 
 from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
                                            shard_ans0_encode,
+                                           shard_cm_decode, shard_cm_encode,
                                            shard_fpaq_decode,
                                            shard_fpaq_encode,
                                            shard_huffman_decode,
@@ -21,4 +22,5 @@ from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
 
 __all__ = ["block_mesh", "shard_ans0_encode", "shard_ans0_decode",
            "shard_huffman_encode", "shard_huffman_decode",
-           "shard_fpaq_encode", "shard_fpaq_decode"]
+           "shard_fpaq_encode", "shard_fpaq_decode", "shard_cm_encode",
+           "shard_cm_decode"]

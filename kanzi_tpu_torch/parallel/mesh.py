@@ -12,8 +12,9 @@ size with items that decode to nothing the caller keeps, and trims the
 outputs. The kernels: ANS0 A and B on encode (ops.ans.encode_chunks), C
 on decode (ops.ans.ans0_decode_flat); Huffman D and E
 (ops.huffman.encode_chunks_np, huffman_decode_chunks); FPAQ G and H
-(ops.fpaq.fpaq_encode_batch, fpaq_decode_records), every stream in
-one launch each way.
+(ops.fpaq.fpaq_encode_batch, fpaq_decode_records) and CM I and J
+(ops.cm.cm_encode_batch, cm_decode_records), every stream in one
+launch each way.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 import kanzi_tpu_torch.ops as _ops
 from kanzi_tpu_torch.ops import ans as dans
+from kanzi_tpu_torch.ops import cm as dcm
 from kanzi_tpu_torch.ops import fpaq as dfp
 from kanzi_tpu_torch.ops import huffman as dhuff
 
@@ -159,3 +161,39 @@ def shard_fpaq_decode(frames, lens: np.ndarray, mesh=None,
         frames = list(frames) + [[]] * (bp - b)
         lens = np.concatenate([lens, np.zeros(bp - b, lens.dtype)])
     return dfp.fpaq_decode_records(frames, lens, chunk_bytes, mesh[0])[:b]
+
+
+def shard_cm_encode(streams: np.ndarray, lens: np.ndarray, mesh=None,
+                    bs_version: int = 6):
+    """CM-encode [b, L] single-chunk byte streams (one a block, each below
+    2^26 bytes) over the mesh, all in one launch of kernel I. Pads b
+    with empty streams. Returns ops.cm.cm_encode_batch's (bufs, low56,
+    overflow), kanzi_tpu's shard_cm_encode's contract."""
+    if mesh is None:
+        mesh = block_mesh()
+    b, n = streams.shape
+    bp = _pad_to(b, len(mesh))
+    if bp != b:
+        streams = np.concatenate([streams, np.zeros((bp - b, n), np.uint8)])
+        lens = np.concatenate([lens, np.zeros(bp - b, lens.dtype)])
+    bufs, low56, overflow = dcm.cm_encode_batch(streams, lens, bs_version,
+                                                mesh[0])
+    return bufs[:b], low56[:b], overflow[:b]
+
+
+def shard_cm_decode(records, lens: np.ndarray, mesh=None,
+                    bs_version: int = 6):
+    """CM-decode b single-chunk streams over the mesh, all in one launch
+    of kernel J, from their records as the host parse reads them:
+    records[s] = (primed current, payload bytes after the 7 priming
+    bytes) (ops.cm.cm_decode_records; kanzi_tpu's takes cm_decode_batch's
+    padded rows, ops.cm.cm_decode_batch here). Pads b with empty
+    streams; returns out [b, max(lens)] uint8."""
+    if mesh is None:
+        mesh = block_mesh()
+    b = lens.shape[0]
+    bp = _pad_to(b, len(mesh))
+    if bp != b:
+        records = list(records) + [(0, b"")] * (bp - b)
+        lens = np.concatenate([lens, np.zeros(bp - b, lens.dtype)])
+    return dcm.cm_decode_records(records, lens, bs_version, mesh[0])[:b]

@@ -17,16 +17,16 @@ kanzi_tpu:
   the ZRLT capacity gate, the copy-back rule), text blocks and the tail
   block through the host chain, and the ordered container commit.
 
-Levels 2 (DNA+LZ), 3 (TEXT+UTF+PACK+MM+LZX, the default level) and 6
-(TEXT+UTF+BWT+SRT+ZRLT): the transforms run on the host, one block at a
-time, and the entropy stage of every block of the file is one batched
-call on the card each way: Huffman's kernels D and E for levels 2 and
-3, FPAQ's G and H for level 6 (one stream a block).
+Levels 2 (DNA+LZ), 3 (TEXT+UTF+PACK+MM+LZX, the default level), 6
+(TEXT+UTF+BWT+SRT+ZRLT) and 7 (LZP+TEXT+UTF+BWT+LZP): the transforms run
+on the host, one block at a time, and the entropy stage of every block
+of the file is one batched call on the card each way: Huffman's kernels
+D and E for levels 2 and 3, FPAQ's G and H for level 6 and CM's I and J
+for level 7 (one stream a block).
 
 Each container is byte-identical with the host writer's, and its
 decompress_*_mesh inverts it and kanzi_tpu's; the tests and
-chip_smoke.py hold both. kanzi_tpu's level-7 chain (the CM lockstep
-coder) is not ported yet, and more than one card is ROADMAP item 14.
+chip_smoke.py hold both. More than one card is ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -50,10 +50,12 @@ from kanzi_tpu_torch.io.compressed_stream import (
     _stash_ans0, _stash_fpaq, _stash_huffman, decode_block)
 from kanzi_tpu_torch.ops import ans as dans
 from kanzi_tpu_torch.ops import bwt as dbwt
+from kanzi_tpu_torch.ops import cm as dcm
 from kanzi_tpu_torch.ops import huffman as dhuff
 from kanzi_tpu_torch.ops.sbrt import MODE_RANK, sbrt
 from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
                                            shard_ans0_encode,
+                                           shard_cm_decode, shard_cm_encode,
                                            shard_fpaq_decode,
                                            shard_fpaq_encode,
                                            shard_huffman_decode,
@@ -518,6 +520,9 @@ CHAIN_L3 = "TEXT+UTF+PACK+MM+LZX"
 ENTROPY_L3 = "HUFFMAN"
 CHAIN_L6 = "TEXT+UTF+BWT+SRT+ZRLT"
 ENTROPY_L6 = "FPAQ"
+CHAIN_L7 = "LZP+TEXT+UTF+BWT+LZP"
+ENTROPY_L7 = "CM"
+CM_TYPE = entropy_name_to_type(ENTROPY_L7)
 
 
 def prepare_huffman_batch_mesh(states: list, mesh) -> None:
@@ -649,3 +654,60 @@ def decompress_l6_mesh(blob: bytes, mesh=None) -> bytes:
     blocks it decodes on the card as l6_decode_device_blocks."""
     return _decompress_host_chain_mesh(blob, mesh, "_fpaqDecodeSink",
                                        _flush_fpaq)
+
+
+def prepare_cm_batch_mesh(states: list, mesh) -> None:
+    """The CM entropy stage over the mesh: every CM block's post-transform
+    bytes one stream, one chunk of the shell (0 < post_len < 2^26, which
+    covers every level-7 block), all in one encode call (kernel I). The
+    host coder takes a block the card cannot (longer, or a stream past
+    its CAP words, kanzi_tpu's overflow list), counted as
+    cm_host_blocks."""
+    cm = [st for st in states
+          if st["e_type"] == CM_TYPE and not (st["mode"] & COPY_BLOCK_MASK)
+          and st["post_len"] > 0]
+    elig = [st for st in cm if st["post_len"] < dcm.MAX_STREAM]
+    if len(elig) < len(cm):
+        _ops.count("cm_host_blocks", len(cm) - len(elig))
+    if not elig:
+        return
+    lens = np.array([st["post_len"] for st in elig], np.int64)
+    bufs, low56, overflow = shard_cm_encode(
+        _fpaq_streams(elig, lens), lens, mesh,
+        elig[0]["bctx"].get_int("bsVersion", 7))
+    for st, buf, low, over in zip(elig, bufs, low56, overflow):
+        if over:
+            _ops.count("cm_host_blocks")
+        else:
+            st["prepared_entropy"] = ([buf], [], low)
+
+
+def compress_l7_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
+    """The level-7 container (LZP+TEXT+UTF+BWT+LZP & CM): the transforms
+    on the host, the CM stage of every block, one stream a block, in one
+    call (kernel I) on the mesh's card. Byte-identical with the host
+    writer's."""
+    return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L7,
+                                     ENTROPY_L7, prepare_cm_batch_mesh)
+
+
+def _flush_cm(entries: list, mesh) -> None:
+    """Every queued CM block one stream, all in one decode call (kernel
+    J), at the bsVersion of the container the entries come from."""
+    _ops.count("l7_decode_device_blocks", len(entries))
+    lens = np.array([len(out) for out, *_ in entries], np.int64)
+    dec = shard_cm_decode([(cur, pay) for _, cur, pay, _ in entries], lens,
+                          mesh, entries[0][3])
+    for (out, *_), row in zip(entries, dec):
+        out[:] = row[:len(out)]
+
+
+def decompress_l7_mesh(blob: bytes, mesh=None) -> bytes:
+    """Decode a level-7 container: each block's CM framing (its size, the
+    56-bit current, the payload) read on the host, every block (one
+    stream a block) in one decode call (kernel J) on the mesh's card,
+    then each block's inverse transforms (LZP, BWT, UTF, TEXT, LZP) on
+    the host. Counts the blocks it decodes on the card as
+    l7_decode_device_blocks."""
+    return _decompress_host_chain_mesh(blob, mesh, "_cmDecodeSink",
+                                       _flush_cm)

@@ -1,0 +1,368 @@
+"""PyTorch port of the CM lockstep coder (kanzi_tpu_torch.ops.cm: kernels
+I, the encode, and J, the decode) against the JAX package and the host
+coder, bit for bit: the format is integer-only, so every tolerance here
+is exact equality.
+
+The plain versions are held against kanzi_tpu.ops.cm_jnp's
+cm_encode_batch and cm_decode_batch (XLA on the CPU), against the port's
+host BinaryEntropyEncoder / BinaryEntropyDecoder with CMPredictor at
+bsVersion 6 and 7, and their end state against the host predictor's.
+The level-7 decode's sink is held against kanzi_tpu's host parse of the
+same container. On the CPU the kernel wrappers run their plain versions;
+the kernels themselves are held against those by the needs_cuda tests at
+the end, which skip without a card. JAX comes in through the ``jcm``
+fixture, so those tests also run on a machine without JAX:
+
+    KANZI_TEST_TPU=1 python -m pytest -m needs_cuda tests/test_torch_cm.py
+
+The plain versions cost about 0.3 ms a bit step here (a Python loop of
+~40 small torch ops), so the streams are up to 1 KiB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import kanzi_tpu_torch
+import kanzi_tpu_torch.ops as tops
+from kanzi_tpu_torch.bitstream import BitReader, BitWriter
+from kanzi_tpu_torch.core.context import Context
+from kanzi_tpu_torch.entropy import utils as eu
+from kanzi_tpu_torch.entropy.binary import (BinaryEntropyDecoder,
+                                            BinaryEntropyEncoder)
+from kanzi_tpu_torch.entropy.cm import CMPredictor
+from kanzi_tpu_torch.ops import cm as tcm
+from kanzi_tpu_torch.parallel import pipeline as tpp
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def jcm():
+    """kanzi_tpu.ops.cm_jnp, the JAX reference (XLA on the CPU)."""
+    from kanzi_tpu.ops import cm_jnp
+    return cm_jnp
+
+
+def _streams():
+    """4 ragged streams of up to 1 KiB, [4, 1024] uint8 zero past their
+    lengths: text-like, random, a skewed alphabet with runs, 40 bytes of
+    one symbol."""
+    rng = np.random.default_rng(17)
+    lens = np.array([1024, 777, 600, 40])
+    rows = [rng.integers(97, 123, 1024),
+            rng.integers(0, 256, 1024),
+            np.repeat(np.minimum(rng.geometric(0.3, 256), 255), 4),
+            np.full(1024, 0xA5)]
+    streams = np.zeros((4, 1024), np.uint8)
+    for j, (row, n) in enumerate(zip(rows, lens)):
+        streams[j, :n] = row[:n]
+    return streams, lens
+
+
+def _records(bufs, low56):
+    """The encoder's outputs as the decoder reads them: the payload, then
+    the 56-bit low, the first 7 bytes priming current."""
+    out = []
+    for buf, low in zip(bufs, low56):
+        tail = buf + low.to_bytes(7, "big")
+        out.append((int.from_bytes(tail[:7], "big"), tail[7:]))
+    return out
+
+
+def _padded(records):
+    """kanzi_tpu's cm_decode_batch rows of the records, as its level-7
+    mesh decode builds them: [b, W] u32 words, the last partial word
+    zero-padded on the right, and [b] u64 currents."""
+    w = max(2, max((len(x) + 3) // 4 for _, x in records) + 1)
+    pay = np.zeros((len(records), w), np.uint32)
+    for j, (_, x) in enumerate(records):
+        rest = x + bytes(8)
+        n = min(len(rest) // 4, w)
+        pay[j, :n] = np.frombuffer(rest[:4 * n], ">u4")
+    return pay, np.array([c for c, _ in records], np.uint64)
+
+
+@pytest.fixture(scope="module")
+def encoded(jcm):
+    """The streams through the plain encode and through kanzi_tpu's."""
+    streams, lens = _streams()
+    tops.reset_counters()
+    ours = tcm.cm_encode_batch(streams, lens, 6, CPU)
+    assert tops.COUNTERS == {"cm_encode_plain": 1}
+    return streams, lens, ours, jcm.cm_encode_batch(streams, lens, 6)
+
+
+@pytest.mark.timeout(300)
+def test_encode_matches_jax(encoded):
+    """cm_encode_batch (the plain version) == kanzi_tpu's: every stream's
+    words, its final low and no overflow."""
+    _, _, ours, theirs = encoded
+    assert ours[0] == theirs[0]
+    assert ours[1] == [int(x) for x in theirs[1]]
+    assert ours[2] == theirs[2] == [False] * 4
+
+
+@pytest.mark.timeout(300)
+def test_decode_matches_jax(jcm, encoded):
+    """cm_decode_batch (the plain version) == kanzi_tpu's on the same
+    padded rows, and both return the input; cm_decode_records on the
+    records does too, with each stream's consumed words its payload's."""
+    streams, lens, (bufs, low56, _), _ = encoded
+    records = _records(bufs, low56)
+    pay, cur = _padded(records)
+    theirs = jcm.cm_decode_batch(pay, cur, lens, 6)
+    ours = tcm.cm_decode_batch(pay, cur, lens, 6, CPU)
+    assert np.array_equal(ours, theirs)
+    for j, n in enumerate(lens):
+        assert np.array_equal(ours[j, :n], streams[j, :n])
+    flat = [torch.from_numpy(a) for a in tcm.flat_records(records)]
+    out, consumed, _ = tcm.cm_decode(*flat, torch.from_numpy(lens),
+                                     tcm.cm_init_state(4, 6))
+    assert np.array_equal(out.numpy(), ours)
+    assert consumed.tolist() == [-(-len(x) // 4) for _, x in records]
+
+
+def _host_encode(data, bs_version):
+    """The host coder's bytes for one block and its predictor after it."""
+    ctx = Context({"bsVersion": bs_version})
+    w = BitWriter()
+    enc = BinaryEntropyEncoder(w, ctx, CMPredictor(ctx))
+    enc.encode(data)
+    enc.dispose()
+    return w.getvalue(), enc
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("bs_version", [6, 7])
+def test_matches_host_coder(bs_version):
+    """At bsVersion 6 and 7: cm_encode_batch framed as the host frames a
+    block (varint size, payload, 56-bit low) == the host encoder's bytes;
+    the host decoder reads the stream back, and cm_decode_records decodes
+    the host's bytes to the input; the plain encode's end state equals
+    the host's (low, high, both counter tables, the context registers)."""
+    streams, lens = _streams()
+    bufs, low56, _ = tcm.cm_encode_batch(streams, lens, bs_version, CPU)
+    _, cnt, end = tcm.cm_encode(torch.from_numpy(streams),
+                                torch.from_numpy(lens), 1024 + 64,
+                                tcm.cm_init_state(4, bs_version))
+    records = []
+    for j, n in enumerate(lens):
+        host, enc = _host_encode(streams[j, :n], bs_version)
+        w = BitWriter()
+        eu.write_varint(w, len(bufs[j]))
+        w.write_bytes(bufs[j])
+        w.write_bits(low56[j], 56)
+        assert w.getvalue() == host
+        assert int(cnt[j]) * 4 == len(bufs[j])
+        pred = enc.predictor
+        assert int(end.low[j]) == enc._low
+        assert int(end.high[j]) == enc._high
+        assert end.counter1[j].tolist() == sum(pred._counter1, [])
+        assert end.counter2[j].tolist() == sum(pred._counter2, [])
+        assert (int(end.c1[j]), int(end.c2[j]), int(end.run_mask[j])) == (
+            pred._c1, pred._c2, pred._run_mask)
+        ctx = Context({"bsVersion": bs_version})
+        back = BinaryEntropyDecoder(BitReader(host), ctx,
+                                    CMPredictor(ctx)).decode(int(n))
+        assert np.array_equal(back, streams[j, :n])
+        r = BitReader(host)
+        eu.read_varint(r)
+        cur = r.read_bits(56)
+        records.append((cur, r.read_bytes(len(bufs[j]))))
+    out = tcm.cm_decode_records(records, lens, bs_version, CPU)
+    for j, n in enumerate(lens):
+        assert np.array_equal(out[j, :n], streams[j, :n])
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("bs_version", [6, 7])
+def test_state_from_limbs(jcm, bs_version):
+    """kanzi_tpu's start state (_init_cm_state: 28-bit limbs, u32
+    tables) carried across by cm_state_from_limbs == cm_init_state; the
+    host predictor's tables at its start are the same."""
+    got = tcm.cm_state_from_limbs(
+        *(np.asarray(x) for x in jcm._init_cm_state(3, bs_version)))
+    want = tcm.cm_init_state(3, bs_version)
+    for name, g, w in zip(tcm.CMState._fields, got, want):
+        assert torch.equal(g, w), name
+    pred = CMPredictor(Context({"bsVersion": bs_version}))
+    assert want.counter1[0].tolist() == sum(pred._counter1, [])
+    assert want.counter2[0].tolist() == sum(pred._counter2, [])
+    assert int(want.counter2[0, 16]) == (65536 if bs_version < 7 else 65535)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("kind", ["ones", "zeros", "alternating"])
+def test_counter_bounds(kind):
+    """The kernels hold counter1 as u16 and counter2 as u32: on 768 bytes
+    of 0xFF, of 0x00 and of 0x00 and 0xFF in turns, counter1 stays in [0,
+    65520] (all ones drive it to 65520) and counter2's entry 16 stays at
+    65536 under bit 1 before bsVersion 7; each stream decodes back."""
+    n = 768
+    row = {"ones": np.full(n, 0xFF), "zeros": np.zeros(n),
+           "alternating": np.tile([0x00, 0xFF], n // 2)}[kind]
+    streams = row.astype(np.uint8)[None]
+    lens = np.array([n])
+    _, _, end = tcm.cm_encode(torch.from_numpy(streams),
+                              torch.from_numpy(lens), n + 64,
+                              tcm.cm_init_state(1, 6))
+    c1, c2 = end.counter1, end.counter2
+    assert 0 <= int(c1.min()) and int(c1.max()) <= tcm.C1_MAX
+    assert 0 <= int(c2.min()) and int(c2.max()) == tcm.PSCALE
+    if kind == "ones":
+        assert int(c1.max()) == tcm.C1_MAX
+        assert int((c2.view(512, 17)[:, 16] == tcm.PSCALE).sum()) == 512
+    bufs, low56, _ = tcm.cm_encode_batch(streams, lens, 6, CPU)
+    out = tcm.cm_decode_records(_records(bufs, low56), lens, 6, CPU)
+    assert np.array_equal(out, streams)
+
+
+@pytest.mark.timeout(300)
+def test_sink_matches_host_parse():
+    """The level-7 decode's sink: the records the CM shell queues for a
+    container (its blocks' 56-bit currents and payloads, their lengths,
+    bsVersion 6) == kanzi_tpu's host parse of the same blocks
+    (_parse_cm_block), and the flush decodes them to the input."""
+    from kanzi_tpu.io.compressed_stream import CompressedReader as RefReader
+    from kanzi_tpu.parallel.pipeline import _parse_cm_block
+    rng = np.random.default_rng(3)
+    data = (b"a rose is a rose is a rose " * 300)[:6000] + \
+        rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+    tops.disable()
+    try:
+        blob = kanzi_tpu_torch.compress_bytes(data, tpp.CHAIN_L7, "CM",
+                                              block_size=4096)
+    finally:
+        tops.enable()
+    seen = []
+
+    def flush(entries):
+        seen.extend((len(out), cur, pay, v) for out, cur, pay, v in entries)
+        tpp._flush_cm(entries, (CPU,))
+
+    r = tpp.CompressedReader(blob, device=CPU,
+                             decode_sinks={"_cmDecodeSink": flush},
+                             sink_window=tpp.MAX_BLOCK_ID)
+    assert r.read_all() == data
+    ref = RefReader(blob)
+    parsed = []
+    while True:
+        bits = ref.ibs.read_bits(3 + ref.ibs.read_bits(5))
+        if bits == 0:
+            break
+        parsed.append(_parse_cm_block(ref.ibs.read_payload(bits), bits,
+                                      ref.block_size))
+    assert len(seen) == len(parsed) == 3
+    for (n, cur, pay, v), (pre_len, _, prime, buf) in zip(seen, parsed):
+        assert (n, cur, pay, v) == (pre_len, prime, buf, 6)
+
+
+@pytest.mark.timeout(60)
+def test_wrappers_check_their_inputs():
+    streams = torch.zeros((2, 64), dtype=torch.uint8)
+    lens = torch.tensor([64, 3])
+    st = tcm.cm_init_state(2, 6)
+    words, cnt, _ = tcm.cm_encode(streams, lens, 80, st)
+    assert words.shape == (2, 80) and cnt.shape == (2,)
+    with pytest.raises(ValueError, match="cap"):
+        tcm.cm_encode(streams, lens, -1, st)
+    with pytest.raises(ValueError, match="lens"):
+        tcm.cm_encode(streams, lens.int(), 80, st)
+    with pytest.raises(ValueError, match="lens"):
+        tcm.cm_encode(streams, lens + 1, 80, st)
+    with pytest.raises(ValueError, match="counter2"):
+        tcm.cm_encode(streams, lens, 80, st._replace(
+            counter2=st.counter2.long()))
+    with pytest.raises(ValueError, match="state"):
+        tcm.cm_encode(streams, lens, 80, st[:6])
+    with pytest.raises(ValueError, match="no kernel"):
+        tcm.cm_encode(streams.to("meta"), lens.to("meta"), 80,
+                      tcm.CMState(*(t.to("meta") for t in st)))
+    pay = torch.zeros(4, dtype=torch.int32)
+    i64 = torch.zeros(2, dtype=torch.int64)
+    out, consumed, _ = tcm.cm_decode(pay, i64, i64 + 2, i64, lens, st)
+    assert out.shape == (2, 64) and consumed.shape == (2,)
+    with pytest.raises(ValueError, match="pay"):
+        tcm.cm_decode(pay.long(), i64, i64 + 2, i64, lens, st)
+    with pytest.raises(ValueError, match="nw"):
+        tcm.cm_decode(pay, i64, i64[:1], i64, lens, st)
+    with pytest.raises(ValueError, match="outside"):
+        tcm.cm_decode(pay, i64 + 3, i64 + 2, i64, lens, st)
+    with pytest.raises(ValueError, match="outside"):
+        tcm.cm_decode(pay, i64, i64 + 2, i64, lens - 4, st)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _kernel_case(name):
+    """(streams [b, L] u8, lens [b], start state) of one case of the
+    needs_cuda tests."""
+    if name == "ragged":
+        streams, lens = _streams()
+        return streams, lens, tcm.cm_init_state(4, 6)
+    rng = np.random.default_rng(8)
+    if name == "many":
+        # 20 streams of up to 1 KiB, one empty and one of a byte
+        lens = rng.integers(0, 1025, 20)
+        lens[:2] = [0, 1]
+        streams = rng.integers(0, 256, (20, 1024)).astype(np.uint8)
+        streams[10:] = rng.integers(40, 48, (10, 1024))
+        return streams, lens, tcm.cm_init_state(20, 7)
+    # the ragged streams from a state that is not the start's: counters
+    # anywhere in their ranges, context registers, low and high mid-block
+    streams, lens = _streams()
+    st = tcm.cm_init_state(4, 6)
+    low = rng.integers(0, 1 << 40, 4)
+    return streams, lens, st._replace(
+        low=torch.from_numpy(low),
+        high=torch.from_numpy(low + rng.integers(1 << 41, 1 << 50, 4)),
+        counter1=torch.from_numpy(rng.integers(
+            0, tcm.C1_MAX + 1, st.counter1.shape).astype(np.int32)),
+        counter2=torch.from_numpy(rng.integers(
+            0, tcm.PSCALE + 1, st.counter2.shape).astype(np.int32)),
+        c1=torch.tensor([3, 7, 7, 255], dtype=torch.int32),
+        c2=torch.tensor([9, 7, 0, 255], dtype=torch.int32),
+        run_mask=torch.tensor([0, 256, 0, 256], dtype=torch.int32))
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", ["ragged", "many", "from_state"])
+def test_kernels_match_plain_on_cuda(cuda_device, case):
+    """Kernels I and J on the card against their plain versions on the
+    host's CPU (the same function): I's words, counts and end state; J,
+    on I's output framed as the decoder reads it, its bytes (the input),
+    consumed words and end state."""
+    streams, lens, state = _kernel_case(case)
+    s, n = torch.from_numpy(streams), torch.from_numpy(lens.astype(np.int64))
+    cap = streams.shape[1] + 64
+    dev_state = tcm.CMState(*(t.to(cuda_device) for t in state))
+    ref = tcm.cm_encode(s, n, cap, state)
+    got = tcm.cm_encode(s.to(cuda_device), n.to(cuda_device), cap, dev_state)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    for name, g, r in zip(tcm.CMState._fields, got[2], ref[2]):
+        assert torch.equal(g.cpu(), r), name
+    words, cnt = ref[0].numpy().view(np.uint32), ref[1].numpy()
+    low56 = [int(x) | tcm.MASK_0_24 for x in ref[2].low]
+    records = _records([words[j, :cnt[j]].astype(">u4").tobytes()
+                        for j in range(len(lens))], low56)
+    flat = [torch.from_numpy(a) for a in tcm.flat_records(records)]
+    ref = tcm.cm_decode(*flat, n, state)
+    got = tcm.cm_decode(*(t.to(cuda_device) for t in flat),
+                        n.to(cuda_device), dev_state)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    for name, g, r in zip(tcm.CMState._fields, got[2], ref[2]):
+        assert torch.equal(g.cpu(), r), name
+    if case != "from_state":
+        for j, m in enumerate(lens):
+            assert np.array_equal(ref[0][j, :m].numpy(), streams[j, :m])

@@ -1,12 +1,13 @@
-"""PyTorch port of the level-2, 3 and 6 mesh chains
+"""PyTorch port of the level-2, 3, 6 and 7 mesh chains
 (kanzi_tpu_torch.parallel.pipeline) against the host writers of both
 packages, byte for byte: the format is exact, so every tolerance here is
 exact equality.
 
 tests/test_mesh_chains.py holds kanzi_tpu's host writer equal to
 kanzi_tpu's mesh chains; here the port's chains on the CPU (the kernels'
-plain versions: Huffman's D and E, FPAQ's G and H) are held equal to the
-port's host writer and to kanzi_tpu's, on that file's mixed data.
+plain versions: Huffman's D and E, FPAQ's G and H, CM's I and J) are
+held equal to the port's host writer and to kanzi_tpu's, on that file's
+mixed data.
 """
 
 import numpy as np
@@ -74,6 +75,11 @@ LEVELS = {
            tpp.ENTROPY_L6, 8192, 4,
            {"fpaq_encode_plain": 1},
            {"fpaq_decode_plain": 1, "l6_decode_device_blocks": 5}),
+    # 4 KiB blocks, 3 of them, as tests/test_mesh_chains.py has for l7
+    "l7": (tpp.compress_l7_mesh, tpp.decompress_l7_mesh, tpp.CHAIN_L7,
+           tpp.ENTROPY_L7, 4096, 3,
+           {"cm_encode_plain": 1},
+           {"cm_decode_plain": 1, "l7_decode_device_blocks": 4}),
 }
 
 
@@ -85,7 +91,8 @@ def test_mesh_chain_matches_host_writers(level):
     it (so from kanzi_tpu's bytes too), with every block's entropy stage
     in one launch of each plain version: D (code tables, pack) and E for
     Huffman; G and H, and all 5 blocks (the 44-byte tail among them) on
-    the decode's stream batch, for FPAQ."""
+    the decode's stream batch, for FPAQ; I and J, all 4 blocks, the same
+    way for CM."""
     cm, dm, chain, entropy, n, blocks, enc_counts, dec_counts = LEVELS[level]
     data = _mixed(np.random.default_rng(31), n, blocks)
     ours_host, theirs_host = _host_writers(data, chain, entropy, n)
@@ -105,7 +112,9 @@ def test_checksums_and_short_blocks():
     (the reader checks each block's checksum after its inverse
     transforms): every full chunk in one launch of E. A block of at most
     32 bytes (stored raw) takes the host decode alone. Both return the
-    input."""
+    input. The same for level 7: the checksummed container in one launch
+    of J, all 3 blocks; a last block of 20 bytes is CM-coded and goes to
+    J with the first."""
     data = _mixed(np.random.default_rng(5), 16384, 2)
     tops.disable()
     try:
@@ -121,6 +130,24 @@ def test_checksums_and_short_blocks():
     tops.reset_counters()
     assert tpp.decompress_l2_mesh(blob, MESH) == data[:16384 + 20]
     assert tops.COUNTERS == {}     # LZ leaves the text block < 16 KiB
+
+    data = _mixed(np.random.default_rng(5), 4096, 2)
+    tops.disable()
+    try:
+        blob = kanzi_tpu_torch.compress_bytes(
+            data, tpp.CHAIN_L7, tpp.ENTROPY_L7, block_size=4096,
+            checksum_bits=32)
+    finally:
+        tops.enable()
+    tops.reset_counters()
+    assert tpp.decompress_l7_mesh(blob, MESH) == data
+    assert tops.COUNTERS == {"cm_decode_plain": 1,
+                             "l7_decode_device_blocks": 3}
+    blob = tpp.compress_l7_mesh(data[:4096 + 20], 4096, MESH)
+    tops.reset_counters()
+    assert tpp.decompress_l7_mesh(blob, MESH) == data[:4096 + 20]
+    assert tops.COUNTERS == {"cm_decode_plain": 1,
+                             "l7_decode_device_blocks": 2}
 
 
 def _queued_huffman(blob):
