@@ -138,7 +138,9 @@ card at SMALL_FPAQ, I and J at SMALL_CM, and timed at 16 x 4 MiB against
 the native coders, with G's crossover;
 SBRT's small checks and its timed RANK input; no plain workers), prints
 their lines and no JSON: a short check of those kernels while one of
-them is redesigned. ``chip_smoke.py --containers``
+them is redesigned. ``chip_smoke.py --decoders`` runs phases 1-3 and
+phase 4's H, I and J only, as ``--kernels`` runs them: the quick check of
+the lockstep binary decoders. ``chip_smoke.py --containers``
 runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
 the container rates of two trees compared in one call.)
 """
@@ -181,7 +183,10 @@ INT32_OPS_PER_S = 67e12 / 4
 # two byte loads, the pair index, the table load, split f and cum, the
 # small compare, clz, the bias select, the shift, the LUT load; F2:
 # cmplFreq, xmax, compare, select, umulhi, shift, multiply-add, add, the
-# slot's select and permute, its store
+# slot's select and permute, its store. These count the function's work,
+# not a design's: the table loads that H and J make before a bit is known
+# for both of its outcomes (H's grandchildren, J's children and the next
+# byte's root) are the design's speculative work, not in the bound
 OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
        "huff_code_tables": 4, "huff_pack": 12, "huff_decode": 8,
        "ans1_gather": 11, "ans1_chain": 11, "fpaq_encode": 8 * 24,
@@ -243,15 +248,17 @@ HOST_SBRT_BYTES = 256 << 10         # and on the CPU: each RANK input's
 # symbol load adds an offset), one in each of C's 16 and E's 64
 # unrolled steps
 TABLE_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
-# H's step: its load of the bit's probability, the kernel's only 16-bit
-# shared load, one in each of the 8 unrolled bit steps of a byte (a step
-# is counted without its flush, whose branch it takes)
-FPAQ_DEC_ANCHOR = r"LDS\.U16 "
+# H's step: the upper half of the 64-bit compare of its split with
+# `current` (the only unsigned 64-bit compare of the decode), one in each
+# of the 8 unrolled bit steps of a byte (a step is counted without its
+# flush, whose branch it takes)
+FPAQ_DEC_ANCHOR = r"ISETP\.[GL][ET]\.U32\.AND\.EX "
 # I's and J's byte loops (sass_loop), each found by an instruction in it:
-# I's shuffle of lane 0's probability, J's load of counter2's first entry
-# (counter2 sits at byte 0x20200 of shared memory, after counter1)
+# I's shuffle of lane 0's probability, J's store of counter2's first
+# updated entry (counter2 sits at byte 0x20200 of shared memory, after
+# counter1; J also loads it before its byte loop, for the first root)
 CM_ANCHORS = {"cm_encode": r"SHFL\.IDX PT, R\d+, R\d+, RZ, 0x1f",
-              "cm_decode": r"LDS R\d+, \[R\d+\+0x20200\]"}
+              "cm_decode": r"STS \[R\d+\+0x20200\]"}
 SMALL_CM = (16, 4 << 10)            # I, J against their plain versions on the
                                     # card: streams, bytes
 HOST_CM_BYTES = 32 << 10            # and on the CPU: each of the 16 main-path
@@ -1040,23 +1047,28 @@ def check_fpaq_decode_kernel(corpus, dfp, native, dev, workers,
         native.bincoder_free(h)
         if rc != 0 or not np.array_equal(dec, row):
             fail(f"fpaq: the native decoder does not return stream {i}")
-    from kanzi_tpu_torch.ops import _build
-    n_ins, stall = sass_step(_build.library_path("fpaq_dec.cu"),
-                             "fpaq_decode_kernel", FPAQ_DEC_ANCHOR,
-                             unrolled=8, taken=True)
     steps = 8 * dfp.CHUNK_B
     log(f"kernel fpaq_decode (H): {len(host)} streams of 4 MiB, {steps} "
         f"bit steps each: kernel_ms {ms}, {1e6 * ms / steps:.2f} ns per "
         f"bit step ({ms * mhz / steps * 1e3:.1f} cycles at the {mhz} MHz "
-        f"SM clock read during a launch); ptxas's schedule (cuobjdump "
-        f"-sass): {n_ins} instructions and {stall} static stall cycles a "
-        f"step without a flush (the branch past it taken), a chain floor "
-        f"of {steps} x {stall} / {mhz} MHz = "
-        f"{steps * stall / mhz / 1e3:.1f} ms before the table loads' "
-        f"waits; plain_ms {plain_ms} at {n} streams of {size >> 10} KiB "
-        f"with {chunk >> 10} KiB chunks (once); output == the input; "
-        f"native decoder {1000 * host_s / len(host):.3f} ms a stream on "
-        f"the host, {1000 * host_s:.1f} ms for the {len(host)}")
+        f"SM clock read during a launch); plain_ms {plain_ms} at {n} "
+        f"streams of {size >> 10} KiB with {chunk >> 10} KiB chunks "
+        f"(once); output == the input; native decoder "
+        f"{1000 * host_s / len(host):.3f} ms a stream on the host, "
+        f"{1000 * host_s:.1f} ms for the {len(host)}")
+    from kanzi_tpu_torch.ops import _build
+    n_ins, stall = sass_step(_build.library_path("fpaq_dec.cu"),
+                             "fpaq_decode_kernel", FPAQ_DEC_ANCHOR,
+                             unrolled=8, taken=True)
+    log(f"kernel fpaq_decode (H): ptxas's schedule (cuobjdump -sass): "
+        f"{n_ins} instructions and {stall} static stall cycles a bit step "
+        f"without a flush, from one compare with `current` to the next "
+        f"(the branch past the flush taken): the chain of the compare, the "
+        f"selects of the bit and the next step's split, with the load of "
+        f"the step's grandchildren beside it; a chain floor of {steps} x "
+        f"{stall} / "
+        f"{mhz} MHz = {steps * stall / mhz / 1e3:.1f} ms before the "
+        f"shared loads' waits")
     # every payload word read once, the chunk records, the state in and
     # out, the output written once
     moved = nbytes(*args, out, consumed) + 2 * len(host) * (16 + 4 * 1024)
@@ -1191,21 +1203,27 @@ def check_cm_kernels(corpus, dcm, native, dev, workers, full_got) -> dict:
             ("cm_encode", ms_i, mhz_i, enc_plain_ms, enc_s, err_i, moved_i),
             ("cm_decode", ms_j, mhz_j, dec_plain_ms, dec_s, err_j,
              moved_j)):
-        n_ins, stall = sass_loop(_build.library_path("cm.cu"),
-                                 f"{k}_kernel", CM_ANCHORS[k])
-        log(f"kernel {k} ({'I' if k == 'cm_encode' else 'J'}): {b} streams "
-            f"of 4 MiB, {steps} bit steps each: kernel_ms {ms}, "
-            f"{1e6 * ms / steps:.2f} ns per bit step "
+        tag = "I" if k == "cm_encode" else "J"
+        log(f"kernel {k} ({tag}): {b} streams of 4 MiB, {steps} bit steps "
+            f"each: kernel_ms {ms}, {1e6 * ms / steps:.2f} ns per bit step "
             f"({ms * mhz / steps * 1e3:.1f} cycles at the {mhz} MHz SM "
-            f"clock read during a launch); ptxas's schedule (cuobjdump "
-            f"-sass): {n_ins} instructions and {stall} static stall cycles "
-            f"a byte without a flush ({stall / 8:.1f} a bit step), a chain "
-            f"floor of {BLOCK} x {stall} / {mhz} MHz = "
-            f"{BLOCK * stall / mhz / 1e3:.1f} ms before the shuffles' and "
-            f"shared loads' waits; plain_ms {plain_ms} at {n} streams of "
-            f"{size >> 10} KiB (once); native host coder "
+            f"clock read during a launch); plain_ms {plain_ms} at {n} "
+            f"streams of {size >> 10} KiB (once); native host coder "
             f"{1000 * host_s / b:.3f} ms a stream, {1000 * host_s:.1f} ms "
             f"for the {b}")
+        n_ins, stall = sass_loop(_build.library_path("cm.cu"),
+                                 f"{k}_kernel", CM_ANCHORS[k])
+        chain = ("the byte's predictor lanes, shuffles and 8 splits" if
+                 tag == "I" else "the byte's 8 steps' chains of counter2's "
+                 "pair, p12, the split, the compare with `current` and the "
+                 "selects of the bit, with the loads of each step's "
+                 "children's counter1 entries beside them")
+        log(f"kernel {k} ({tag}): ptxas's schedule (cuobjdump -sass): "
+            f"{n_ins} instructions and {stall} static stall cycles a byte "
+            f"without a flush ({stall / 8:.1f} a bit step), {chain}: a "
+            f"chain floor of {BLOCK} x {stall} / {mhz} MHz = "
+            f"{BLOCK * stall / mhz / 1e3:.1f} ms before the shuffles' and "
+            f"shared loads' waits")
         res[k] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                       **bound(k, moved, b * BLOCK))
     log("kernel cm_encode: bytes and final lows == the native CM coder's; "
@@ -1696,7 +1714,7 @@ def main(mode: str) -> None:
 
 def run(workers: dict, mode: str) -> None:
     """Phases 1-10 (mode "full"); 1-4 for A-E, G-J and SBRT only
-    ("kernels"); 1-3 and 5 ("containers")."""
+    ("kernels"), for H-J only ("decoders"); 1-3 and 5 ("containers")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -1743,6 +1761,13 @@ def run(workers: dict, mode: str) -> None:
     full_got = {}
 
     # 4. kernels against their plain versions at the main path's shape
+    if mode == "decoders":
+        kres = check_fpaq_decode_kernel(corpus, dfp, native, dev, None,
+                                        full_got)
+        kres.update(check_cm_kernels(corpus, dcm, native, dev, None,
+                                     full_got))
+        report_kernels(kres)
+        return
     if mode != "containers":
         chunks = torch.frombuffer(bytearray(corpus), dtype=torch.uint8
                                   ).view(N_CHUNKS, dans.CHUNK).to(dev)
@@ -1990,5 +2015,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--plain"]:
         plain_worker(Path(sys.argv[2]))
     else:
-        main({"--kernels": "kernels", "--containers": "containers"}.get(
+        main({"--kernels": "kernels", "--containers": "containers",
+              "--decoders": "decoders"}.get(
             sys.argv[1] if sys.argv[1:] else "", "full"))

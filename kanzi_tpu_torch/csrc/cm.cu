@@ -24,31 +24,45 @@
 // What bounds I and J: the dependent chain of 8 bit steps per byte in
 // each stream. A step loads three counter1 entries at the context the
 // bits before it make, then two counter2 entries at an index computed
-// from them, splits the range, and stores the four counters it updated;
-// the next step's loads may read those. J's bit is the compare with
-// `current`, so its next context waits on the split as well. A launch has
-// only as many chains as streams. The design: one block a stream, whose
-// threads move the stream's tables between global memory (int32, the
-// state the wrapper passes in and gets back) and dynamic shared memory,
-// and whose first warp runs the bit loop. In I the byte's bits, so its 8
-// contexts, are known before its range splits, and within a byte no two
-// bit steps touch the same row of either table (the contexts differ): so
-// lanes 0-7 run the byte's 8 predictor steps side by side, lane k bit
-// step k, and every lane then runs the byte's 8 range splits, the same
-// on each lane, with the 8 probabilities shuffled from lanes 0-7; lane 0
-// stores the words. In J each step's context needs the bit before it, so
-// its first thread runs the steps one after another.
+// from them, splits the range, and stores the four counters it updated.
+// Within a byte no two bit steps touch the same row of either table: the
+// steps visit distinct nodes 1..255 of the bit tree, and the rows they
+// read (counter1 row ctx at entries 256, b1 and b2; counter2 row ctx |
+// run mask) depend on nothing else that changes within the byte. A launch
+// has only as many chains as streams. The design: one block a stream,
+// whose threads move the stream's tables between global memory (int32,
+// the state the wrapper passes in and gets back) and dynamic shared
+// memory, and whose first warp runs the bit loop. In I the byte's bits,
+// so its 8 contexts, are known before its range splits: lanes 0-7 run
+// the byte's 8 predictor steps side by side, lane k bit step k, and
+// every lane then runs the byte's 8 range splits, the same on each lane,
+// with the 8 probabilities shuffled from lanes 0-7; lane 0 stores the
+// words. In J each step's context needs the bit before it, so its first
+// thread runs the steps one after another, and takes counter1 off the
+// step's chain: before a step's bit is known it loads both children's
+// counter1 entries and computes their p (the tables as they stood at the
+// byte's start, since no earlier step of the byte wrote those rows);
+// after the bit it selects the chosen child's, and stores its own four
+// counters. After the byte's seventh bit it loads the next byte's root
+// row for both values of the last bit (the previous byte follows from
+// it): row 1 was written at the byte's first step, before. The step's
+// chain is counter2's two entries at the index p gives, p12, the split,
+// the compare with `current`, the selects of the bit and the flush test;
+// loading both children's counter2 entries and splits as well was slower
+// (more instructions a step than the chain saved, PERF.md). A flush is a
+// branch that shifts the bounds and `current`.
 // counter1 is held as u16: a bit-0 update stops at 0 and a bit-1 update,
 // v - ((v - 65520) >> rate) with an arithmetic shift, at 65520. counter2
 // is held as u32: its entry 16 starts at 65536 before bsVersion 7 and
 // stays there under bit 1. 131,584 + 34,816 = 166,400 B a block (above
 // the 48 KB that needs cudaFuncSetAttribute), one block an SM. low, high
 // and current live in 64-bit registers: ((high - low) >> 4) * p12 is
-// below 2^52 * 2^12, exact in uint64. I's next input byte and J's next
-// payload word are loaded a byte or a flush ahead, off the chain. A read
-// at or past a stream's word count yields 0: the host decoder reads the
-// payload's last partial word zero-padded on the right and zero words
-// after it.
+// below 2^52 * 2^12, exact in uint64; J keeps them shifted left by 8
+// bits, as G does (csrc/fpaq.cu), so its flush test is one compare of
+// upper words. I's next input byte and J's next payload word are loaded
+// a byte or a flush ahead, off the chain. A read at or past a stream's
+// word count yields 0: the host decoder reads the payload's last partial
+// word zero-padded on the right and zero words after it.
 //
 // Inputs of I: streams [b, ld] u8, lens [b]; outputs: words [b, cap]
 // (u32 flush words from each stream's start, those past cap dropped),
@@ -113,29 +127,31 @@ __device__ __forceinline__ uint32_t upd(uint32_t v, uint32_t bit, int rate) {
                     (((int32_t)v - (int32_t)(65520u & (0u - bit))) >> rate));
 }
 
-// One bit step of J: CMPredictor::get() at context ctx, the split, the
-// bit (the split against current), the bound it keeps and
-// CMPredictor::update()'s four counters. Returns the bit.
-__device__ __forceinline__ uint32_t decode_step(uint16_t* c1, uint32_t* c2,
-                                                uint32_t ctx, uint32_t b1,
-                                                uint32_t b2, uint32_t rm,
-                                                uint64_t cur, uint64_t& low,
-                                                uint64_t& high) {
-  uint16_t* r1 = c1 + ctx * 257;
-  const uint32_t t256 = r1[256], tc1 = r1[b1], tc2 = r1[b2];
-  const uint32_t p = (13u * (t256 + tc1) + 6u * tc2) >> 5;
-  uint32_t* r2 = c2 + (ctx | rm) * 17 + (p >> 12);
-  const uint32_t s0 = r2[0], s1 = r2[1];
-  const uint32_t p12 = (p + p + 3u * (s0 + s1) + 64u) >> 7;
-  const uint64_t mid = low + ((((high - low) >> 4) * p12) >> 8);
-  const uint32_t bit = mid >= cur ? 1u : 0u;
-  high = bit ? mid : high;
-  low = bit ? low : mid + 1;
-  r1[256] = (uint16_t)upd(t256, bit, 2);
-  r1[b1] = (uint16_t)upd(tc1, bit, 4);
-  r2[0] = upd(s0, bit, 6);
-  r2[1] = upd(s1, bit, 6);
-  return bit;
+// Counter1's part of a node of J's bit tree under the byte's context
+// registers: p and the two entries its update rewrites.
+struct Row {
+  uint32_t p, t256, tc1;
+};
+
+__device__ __forceinline__ Row load_row(const uint16_t* c1, uint32_t ctx,
+                                        uint32_t b1, uint32_t b2) {
+  const uint16_t* r1 = c1 + ctx * 257;
+  Row r;
+  r.t256 = r1[256];
+  r.tc1 = r1[b1];
+  r.p = (13u * (r.t256 + r.tc1) + 6u * r1[b2]) >> 5;
+  return r;
+}
+
+// The split of the range [lo, hi] (both shifted left by 8) at p12: lo +
+// (((hi - lo) >> 4) * p12 >> 8), shifted.
+__device__ __forceinline__ uint64_t split(uint64_t lo, uint64_t hi,
+                                          uint32_t p12) {
+  return lo + ((((hi - lo) >> 12) * p12) & ~0xFFull);
+}
+
+__device__ __forceinline__ uint32_t hi32(uint64_t v) {
+  return (uint32_t)(v >> 32);
 }
 
 // Bit step k of I's predictor for the byte val (context (val | 256) >>
@@ -236,28 +252,64 @@ cm_decode_kernel(const uint32_t* __restrict__ pay,
   load_tables(st, s, c1w, c2);
   if (threadIdx.x == 0) {
     uint16_t* c1 = reinterpret_cast<uint16_t*>(c1w);
-    uint64_t low = (uint64_t)st.low[s];
-    uint64_t high = (uint64_t)st.high[s];
+    // low, high and current shifted left by 8
+    uint64_t low = (uint64_t)st.low[s] << 8;
+    uint64_t high = (uint64_t)st.high[s] << 8;
     uint32_t b1 = (uint32_t)st.c1[s], b2 = (uint32_t)st.c2[s];
     uint32_t rm = (uint32_t)st.run_mask[s];
     const int64_t len = lens[s];
     const uint32_t* w = pay + off[s];
     const int64_t nw = nw_in[s];
-    uint64_t cur = (uint64_t)cur_in[s];
+    uint64_t cur = (uint64_t)cur_in[s] << 8;
     uint8_t* dst = out + (size_t)s * ld;
     int64_t widx = 0;
     uint32_t nxt = nw > 0 ? __ldg(w) : 0u;
+    // the step's counter1 row
+    Row nd = load_row(c1, 1, b1, b2);
     for (int64_t i = 0; i < len; ++i) {
+      Row r1n, r0n;                   // the next byte's root, last bit 1/0
       uint32_t ctx = 1;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const uint32_t bit =
-            decode_step(c1, c2, ctx, b1, b2, rm, cur, low, high);
-        ctx = 2 * ctx + bit;
-        if (((low ^ high) >> 24) == 0) {
-          low = (low << 32) & kMask56;
-          high = ((high << 32) | kMask32) & kMask56;
-          cur = ((cur << 32) | nxt) & kMask56;
+        // both children's counter1 rows, before the bit
+        Row k1, k0;
+        if (k < 7) {
+          k0 = load_row(c1, 2 * ctx, b1, b2);
+          k1 = load_row(c1, 2 * ctx + 1, b1, b2);
+        } else {
+          k0 = r0n;
+          k1 = r1n;
+        }
+        const uint32_t i2 = (ctx | rm) * 17 + (nd.p >> 12);
+        const uint32_t s0 = c2[i2], s1 = c2[i2 + 1];
+        const uint32_t p12 = (nd.p + nd.p + 3u * (s0 + s1) + 64u) >> 7;
+        const uint64_t mid = split(low, high, p12);
+        const bool bit = mid >= cur;
+        const uint64_t lo0 = mid + 0x100u;
+        const bool flush = bit ? hi32(low) == hi32(mid)
+                               : hi32(lo0) == hi32(high);
+        const uint32_t b = bit ? 1u : 0u;
+        uint16_t* r1 = c1 + ctx * 257;
+        r1[256] = (uint16_t)upd(nd.t256, b, 2);
+        r1[b1] = (uint16_t)upd(nd.tc1, b, 4);
+        c2[i2] = upd(s0, b, 6);
+        c2[i2 + 1] = upd(s1, b, 6);
+        high = bit ? mid : high;
+        low = bit ? low : lo0;
+        nd = Row{bit ? k1.p : k0.p, bit ? k1.t256 : k0.t256,
+                 bit ? k1.tc1 : k0.tc1};
+        ctx = 2 * ctx + b;
+        if (k == 6) {
+          // after the byte's store to row 1; the byte is ctx's 7 bits
+          // and a last one, the previous byte b1
+          const uint32_t v0 = (2 * ctx) & 0xFFu;
+          r0n = load_row(c1, 1, v0, b1);
+          r1n = load_row(c1, 1, v0 | 1u, b1);
+        }
+        if (flush) {
+          low <<= 32;
+          high = (high << 32) | (kMask32 << 8);
+          cur = (cur << 32) | ((uint64_t)nxt << 8);
           ++widx;
           nxt = widx < nw ? __ldg(w + widx) : 0u;
         }
@@ -268,8 +320,8 @@ cm_decode_kernel(const uint32_t* __restrict__ pay,
       rm = b1 == b2 ? 0x100u : 0u;
     }
     consumed[s] = widx;
-    st.low[s] = (int64_t)low;
-    st.high[s] = (int64_t)high;
+    st.low[s] = (int64_t)(low >> 8);
+    st.high[s] = (int64_t)(high >> 8);
     st.c1[s] = (int32_t)b1;
     st.c2[s] = (int32_t)b2;
     st.run_mask[s] = (int32_t)rm;

@@ -300,6 +300,18 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _run_streams():
+    """3 streams of up to 1 KiB: 600 bytes of one symbol then two symbols
+    in turns, 8 runs of 128 bytes, random bytes."""
+    rng = np.random.default_rng(9)
+    streams = np.zeros((3, 1024), np.uint8)
+    streams[0, :600] = 0x41
+    streams[0, 600:] = np.tile(np.array([0x41, 0xC2], np.uint8), 212)
+    streams[1] = np.repeat(rng.integers(0, 256, 8), 128)
+    streams[2] = rng.integers(0, 256, 1024)
+    return streams, np.array([1024, 1024, 1000])
+
+
 def _kernel_case(name):
     """(streams [b, L] u8, lens [b], start state) of one case of the
     needs_cuda tests."""
@@ -307,6 +319,20 @@ def _kernel_case(name):
         streams, lens = _streams()
         return streams, lens, tcm.cm_init_state(4, 6)
     rng = np.random.default_rng(8)
+    if name == "runs":
+        # b1 == b2 for hundreds of bytes (run mask 0x100), then two
+        # symbols in turns; runs of 128; random
+        streams, lens = _run_streams()
+        return streams, lens, tcm.cm_init_state(3, 6)
+    if name == "flushes":
+        # random bytes from counter1 at its ends, 0 or 65520 at random:
+        # confident predictions, half of them wrong, so a flush every ~27
+        # bit steps (~32 for random bytes from the block's start)
+        streams = rng.integers(0, 256, (4, 1024)).astype(np.uint8)
+        st = tcm.cm_init_state(4, 6)
+        return streams, np.array([1024, 1024, 513, 96]), st._replace(
+            counter1=torch.from_numpy((rng.integers(
+                0, 2, st.counter1.shape) * tcm.C1_MAX).astype(np.int32)))
     if name == "many":
         # 20 streams of up to 1 KiB, one empty and one of a byte
         lens = rng.integers(0, 1025, 20)
@@ -333,7 +359,8 @@ def _kernel_case(name):
 
 @pytest.mark.timeout(300)
 @pytest.mark.needs_cuda
-@pytest.mark.parametrize("case", ["ragged", "many", "from_state"])
+@pytest.mark.parametrize("case", ["ragged", "many", "from_state", "runs",
+                                  "flushes"])
 def test_kernels_match_plain_on_cuda(cuda_device, case):
     """Kernels I and J on the card against their plain versions on the
     host's CPU (the same function): I's words, counts and end state; J,
@@ -366,3 +393,98 @@ def test_kernels_match_plain_on_cuda(cuda_device, case):
     if case != "from_state":
         for j, m in enumerate(lens):
             assert np.array_equal(ref[0][j, :m].numpy(), streams[j, :m])
+
+
+def _upd(v, bit, rate):
+    """A counter's update (CMPredictor::update), Python's shift arithmetic."""
+    return v - ((v - (65520 if bit else 0)) >> rate)
+
+
+def _model_decode(pay, off, nw, cur, n, st, j):
+    """Stream j of cm_decode in kernel J's order of table reads, plain
+    Python: a step reads both children's counter1 entries before its own
+    stores, and after the byte's seventh bit the next byte's root row for
+    both values of the last bit (row 1 was written at the byte's first
+    step); the chosen child's or root's entries stand in where the plain
+    version reads counter1 afresh. Counter2 is read at the step, as the
+    plain version reads it. Returns (bytes, words consumed, low, high,
+    counter1, counter2, c1, c2, run mask)."""
+    c1t = st.counter1[j].tolist()
+    c2t = st.counter2[j].tolist()
+    low, high = int(st.low[j]), int(st.high[j])
+    b1, b2, rm = int(st.c1[j]), int(st.c2[j]), int(st.run_mask[j])
+    words = [int(x) & tcm.MASK_0_32
+             for x in pay[int(off[j]):int(off[j]) + int(nw[j])]]
+    cur, widx = int(cur[j]), 0
+
+    def row(ctx, b1, b2):
+        r = ctx * 257
+        t256, tc1, tc2 = c1t[r + 256], c1t[r + b1], c1t[r + b2]
+        return (13 * (t256 + tc1) + 6 * tc2) >> 5, t256, tc1
+
+    out = []
+    nd = row(1, b1, b2)
+    for _ in range(n):
+        ctx = 1
+        for k in range(8):
+            kids = ((row(2 * ctx, b1, b2), row(2 * ctx + 1, b1, b2))
+                    if k < 7 else roots)
+            p, t256, tc1 = nd
+            i2 = (ctx | rm) * 17 + (p >> 12)
+            s0, s1 = c2t[i2], c2t[i2 + 1]
+            p12 = (p + p + 3 * (s0 + s1) + 64) >> 7
+            mid = low + ((((high - low) >> 4) * p12) >> 8)
+            bit = int(mid >= cur)
+            high, low = (mid, low) if bit else (high, mid + 1)
+            c1t[ctx * 257 + 256] = _upd(t256, bit, 2)
+            c1t[ctx * 257 + b1] = _upd(tc1, bit, 4)
+            c2t[i2], c2t[i2 + 1] = _upd(s0, bit, 6), _upd(s1, bit, 6)
+            nd = kids[bit]
+            ctx = 2 * ctx + bit
+            if k == 6:
+                v0 = (2 * ctx) & 0xFF
+                roots = row(1, v0, b1), row(1, v0 | 1, b1)
+            if ((low ^ high) >> 24) == 0:
+                low = (low & tcm.MASK_0_24) << 32
+                high = ((high & tcm.MASK_0_24) << 32) | tcm.MASK_0_32
+                nxt = words[widx] if widx < len(words) else 0
+                cur = ((cur & tcm.MASK_0_24) << 32) | nxt
+                widx += 1
+        out.append(ctx & 0xFF)
+        b2, b1 = b1, ctx & 0xFF
+        rm = 0x100 if b1 == b2 else 0
+    return out, widx, low, high, c1t, c2t, b1, b2, rm
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("case", ["from_state", "runs"])
+def test_read_order_model_matches_plain(case):
+    """Kernel J's argument that a step may read both children's counter1
+    entries before its own stores, and the next byte's root row after the
+    byte's seventh bit: a model that reads the tables in that order (and
+    uses the values it read where cm_decode_plain reads afresh) decodes
+    byte for byte as the plain version, with the same words consumed and
+    end state, from random counters and run masks 0x100 and on long runs
+    then two symbols in turns."""
+    streams, lens, state = _kernel_case(case)
+    n = torch.from_numpy(lens.astype(np.int64))
+    words, cnt, end = tcm.cm_encode_plain(torch.from_numpy(streams), n,
+                                          streams.shape[1] + 64, state)
+    w = words.numpy().view(np.uint32)
+    records = _records([w[j, :cnt[j]].astype(">u4").tobytes()
+                        for j in range(len(lens))],
+                       [int(x) | tcm.MASK_0_24 for x in end.low])
+    pay, off, nw, cur = tcm.flat_records(records)
+    ref, consumed, ref_end = tcm.cm_decode_plain(
+        *(torch.from_numpy(a) for a in (pay, off, nw, cur)), n, state)
+    for j, m in enumerate(lens):
+        got = _model_decode(pay, off, nw, cur, int(m), state, j)
+        assert got[0] == ref[j, :m].tolist(), j
+        assert got[1] == int(consumed[j]), j
+        assert got[2:] == (int(ref_end.low[j]), int(ref_end.high[j]),
+                           ref_end.counter1[j].tolist(),
+                           ref_end.counter2[j].tolist(),
+                           int(ref_end.c1[j]), int(ref_end.c2[j]),
+                           int(ref_end.run_mask[j])), j
+        if case != "from_state":
+            assert got[0] == streams[j, :m].tolist(), j

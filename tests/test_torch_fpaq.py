@@ -548,20 +548,23 @@ def test_decode_wrapper_checks_its_inputs():
         tf.fpaq_decode(*(a.to("meta") for a in args), CH)
 
 
-@pytest.mark.timeout(300)
-@pytest.mark.needs_cuda
-@pytest.mark.parametrize("case", ["ragged", "cut", "zeros", "from_state"])
-def test_decode_kernel_matches_plain_on_cuda(cuda_device, case,
-                                             monkeypatch):
-    """Kernel H on the card against its plain version on the host's CPU,
-    bytes, consumed words and end state: the ragged streams of
-    _decode_data over up to 3 chunks; one whose payload is cut 9 bytes
-    short (zero words read past it); an all-zero stream; and the same
-    ragged streams from a state that is not the start's."""
-    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+def _decode_case(case):
+    """H's flat arguments (decode_layout, CH chunks), start state (None
+    for the block start's) and input bytes of one decode case; the
+    caller sets fq.DEFAULT_CHUNK_SIZE to CH."""
+    rng = np.random.default_rng(5)
     datas = _decode_data()
     if case == "zeros":
         datas = [np.zeros(3 * CH, np.uint8)]
+    if case in ("bank", "flushes"):
+        datas = [_bank_data(3 * CH), _bank_data(2 * CH + 300)[::-1].copy()]
+        datas[1][[CH - 1, 2 * CH - 1]] = [0x7F, 0xC5]
+    if case == "flushes":
+        datas = [rng.integers(0, 256, len(d), dtype=np.uint8)
+                 for d in datas]
+    if case == "runs":
+        datas = [np.repeat(rng.integers(0, 256, 24).astype(np.uint8), 256),
+                 np.tile(np.array([0x41, 0xC2], np.uint8), 2 * CH)]
     frames = _frames(datas)
     if case == "cut":
         frames = [[(c, x[:len(x) - 9]) for c, x in f] for f in frames]
@@ -569,12 +572,107 @@ def test_decode_kernel_matches_plain_on_cuda(cuda_device, case,
     pays, curs = _rows(frames)
     state = None
     if case == "from_state":
-        rng = np.random.default_rng(5)
         low, high, probs = tf.fpaq_init_state(len(datas))
         state = (low, high, torch.from_numpy(
             rng.integers(1, 65472, probs.shape).astype(np.int32)))
     args = [torch.from_numpy(a)
             for a in tf.decode_layout(pays, curs, lens, CH)]
+    return args, state, datas
+
+
+def _upd(p, bit):
+    """A probability's update (FPAQPredictor::update)."""
+    return p - (p >> 6) + (1023 if bit else 0)
+
+
+def _model_decode(args, state, j):
+    """Stream j of fpaq_decode in kernel H's order of table reads, plain
+    Python: a step reads its four grandchildren (the next step's
+    children) before its own store, and after the byte's second bit the
+    next byte's root and the root's children, in the bank of the byte's
+    top two bits or, at a chunk's last byte, in bank 0; the values read
+    stand in where the plain version reads the table afresh. Returns
+    (bytes, each chunk's words consumed, low, high, table)."""
+    pay, c_off, c_nw, c_cur, first, lens = (a.tolist() for a in args)
+    low, high, probs = state if state is not None else tf.fpaq_init_state(
+        len(lens))
+    low, high, tbl = int(low[j]), int(high[j]), probs[j].tolist()
+    out, used = [], []
+    base, pv, kids = 0, tbl[1], (tbl[2], tbl[3])
+    for c in range(first[j], first[j] + -(-lens[j] // CH)):
+        words = [x & tf.MASK_0_32
+                 for x in pay[c_off[c]:c_off[c] + c_nw[c]]]
+        cur, widx = c_cur[c], 0
+        n = min(CH, lens[j] - len(out))
+        for i in range(n):
+            ctx = 1
+            for k in range(8):
+                if k < 6:
+                    g = tbl[base + 4 * ctx:base + 4 * ctx + 4]
+                split = low + ((((high - low) >> 8) * pv) >> 8)
+                bit = int(split >= cur)
+                high, low = (split, low) if bit else (high, split + 1)
+                tbl[base + ctx] = _upd(pv, bit)
+                pv = kids[bit] if k < 7 else npv
+                if k < 6:
+                    kids = g[2 * bit:2 * bit + 2]
+                ctx = 2 * ctx + bit
+                if k == 1:
+                    nbase = ((ctx & 3) if i + 1 < n else 0) << 8
+                    npv, nkids = tbl[nbase + 1], tbl[nbase + 2:nbase + 4]
+                if ((low ^ high) >> 24) == 0:
+                    low = (low & tf.MASK_0_24) << 32
+                    high = ((high & tf.MASK_0_24) << 32) | tf.MASK_0_32
+                    nxt = words[widx] if widx < len(words) else 0
+                    cur = ((cur & tf.MASK_0_24) << 32) | nxt
+                    widx += 1
+            out.append(ctx & 0xFF)
+            base, kids = nbase, nkids
+        used.append(widx)
+    return out, used, low, high, tbl
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("case", ["from_state", "runs", "bank"])
+def test_decode_read_order_model_matches_plain(case, monkeypatch):
+    """Kernel H's argument that a step may read its grandchildren before
+    its own store, and the next byte's root after the byte's second bit:
+    a model that reads the table in that order (bank 0 after a chunk's
+    last byte) decodes byte for byte as fpaq_decode_plain, with the same
+    words consumed a chunk and end state, from a random table, on runs
+    and two symbols in turns, and over 3 chunks whose chunk-final bytes
+    are >= 0x40."""
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    args, state, datas = _decode_case(case)
+    ref, consumed, low, high, probs = tf.fpaq_decode_plain(
+        *args, CH, *(state or tf.fpaq_init_state(len(datas))))
+    first = args[4].tolist()
+    for j, d in enumerate(datas):
+        out, used, *end = _model_decode(args, state, j)
+        assert out == ref[j, :len(d)].tolist(), j
+        assert used == consumed[first[j]:first[j] + len(used)].tolist(), j
+        assert end == [int(low[j]), int(high[j]), probs[j].tolist()], j
+        if case != "from_state":
+            assert out == d.tolist(), j
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", ["ragged", "cut", "zeros", "from_state",
+                                  "bank", "flushes"])
+def test_decode_kernel_matches_plain_on_cuda(cuda_device, case,
+                                             monkeypatch):
+    """Kernel H on the card against its plain version on the host's CPU,
+    bytes, consumed words and end state: the ragged streams of
+    _decode_data over up to 3 chunks; one whose payload is cut 9 bytes
+    short (zero words read past it); an all-zero stream; the same ragged
+    streams from a state that is not the start's; streams over 3 chunks
+    whose chunk-final bytes are >= 0x40 (the next chunk's first byte
+    takes bank 0, not that byte's); and random streams over 3 chunks,
+    incompressible from the block's start state: a flush every ~32 bit
+    steps."""
+    monkeypatch.setattr(fq, "DEFAULT_CHUNK_SIZE", CH)
+    args, state, _ = _decode_case(case)
     ref = tf.fpaq_decode(*args, CH, state)
     got = tf.fpaq_decode(*(a.to(cuda_device) for a in args), CH,
                          None if state is None
