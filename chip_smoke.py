@@ -123,7 +123,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    (l7_decode_device_blocks) and none coded on the host
    (cm_host_blocks); both rates beside the host path's, medians of 3
    runs each in turns, and one torch.profiler / cProfile breakdown each
-   of the level-2, 6 and 7 decodes;
+   of the level-2, 6 and 7 decodes and of the level-7 encode;
 10. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
@@ -140,7 +140,8 @@ SBRT's small checks and its timed RANK input; no plain workers), prints
 their lines and no JSON: a short check of those kernels while one of
 them is redesigned. ``chip_smoke.py --decoders`` runs phases 1-3 and
 phase 4's H, I and J only, as ``--kernels`` runs them: the quick check of
-the lockstep binary decoders. ``chip_smoke.py --containers``
+the lockstep binary decoders, ``chip_smoke.py --cm`` I and J alone.
+``chip_smoke.py --containers``
 runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
 the container rates of two trees compared in one call.)
 """
@@ -254,10 +255,11 @@ TABLE_ANCHOR = r"LDS\.U8 R\d+, \[R\d+\+UR\d+\]"
 # flush, whose branch it takes)
 FPAQ_DEC_ANCHOR = r"ISETP\.[GL][ET]\.U32\.AND\.EX "
 # I's and J's byte loops (sass_loop), each found by an instruction in it:
-# I's shuffle of lane 0's probability, J's store of counter2's first
-# updated entry (counter2 sits at byte 0x20200 of shared memory, after
-# counter1; J also loads it before its byte loop, for the first root)
-CM_ANCHORS = {"cm_encode": r"SHFL\.IDX PT, R\d+, R\d+, RZ, 0x1f",
+# I's coder's predicated store of a flush word, which nothing else of the
+# kernel makes; J's store of counter2's first updated entry (counter2
+# sits at byte 0x20200 of shared memory, after counter1; J also loads it
+# before its byte loop, for the first root)
+CM_ANCHORS = {"cm_encode": r"@!?P\d STS ",
               "cm_decode": r"STS \[R\d+\+0x20200\]"}
 SMALL_CM = (16, 4 << 10)            # I, J against their plain versions on the
                                     # card: streams, bytes
@@ -1213,7 +1215,8 @@ def check_cm_kernels(corpus, dcm, native, dev, workers, full_got) -> dict:
             f"for the {b}")
         n_ins, stall = sass_loop(_build.library_path("cm.cu"),
                                  f"{k}_kernel", CM_ANCHORS[k])
-        chain = ("the byte's predictor lanes, shuffles and 8 splits" if
+        chain = ("the coder's 8 splits, flush tests and selects (the "
+                 "producer warp runs the predictor a window ahead)" if
                  tag == "I" else "the byte's 8 steps' chains of counter2's "
                  "pair, p12, the split, the compare with `current` and the "
                  "selects of the bit, with the loads of each step's "
@@ -1316,8 +1319,8 @@ def sass_loop(lib: Path, kernel: str, anchor: str) -> tuple:
     `kernel` that holds the first instruction matching the regex
     `anchor`: from the target of the first backward branch after it to
     that branch, along the path that takes each forward branch that
-    skips no shared load (I and J: a byte of the loop, its flushes
-    skipped, I's predictor steps run). The waits on variable-latency
+    skips no shared load (J: a byte of the loop, its flushes skipped;
+    I's coder has no branch in its byte). The waits on variable-latency
     results (shuffles, shared-memory loads) are not in the count."""
     ins = sass_ins(lib, kernel)
     addr = [a for a, _, _ in ins]
@@ -1578,7 +1581,7 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
     """Phase 9: the level-2, 3, 6 and 7 mesh chains on the corpus at 4
     MiB blocks against the host path, each call with the counters reset
     just before and read just after; then one profile each of the
-    level-2, 6 and 7 decodes."""
+    level-2, 6 and 7 decodes and of the level-7 encode."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     blocks = len(corpus) // BLOCK
@@ -1668,6 +1671,7 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
     profile("l2 mesh decode", lambda: pp.decompress_l2_mesh(blobs["l2"]))
     profile("l6 mesh decode", lambda: pp.decompress_l6_mesh(blobs["l6"]))
     profile("l7 mesh decode", lambda: pp.decompress_l7_mesh(blobs["l7"]))
+    profile("l7 mesh encode", lambda: pp.compress_l7_mesh(corpus, BLOCK))
 
 
 def report_kernels(kres: dict) -> None:
@@ -1714,7 +1718,8 @@ def main(mode: str) -> None:
 
 def run(workers: dict, mode: str) -> None:
     """Phases 1-10 (mode "full"); 1-4 for A-E, G-J and SBRT only
-    ("kernels"), for H-J only ("decoders"); 1-3 and 5 ("containers")."""
+    ("kernels"), for H-J only ("decoders"), for I and J only ("cm"); 1-3
+    and 5 ("containers")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -1761,9 +1766,9 @@ def run(workers: dict, mode: str) -> None:
     full_got = {}
 
     # 4. kernels against their plain versions at the main path's shape
-    if mode == "decoders":
-        kres = check_fpaq_decode_kernel(corpus, dfp, native, dev, None,
-                                        full_got)
+    if mode in ("decoders", "cm"):
+        kres = {} if mode == "cm" else check_fpaq_decode_kernel(
+            corpus, dfp, native, dev, None, full_got)
         kres.update(check_cm_kernels(corpus, dcm, native, dev, None,
                                      full_got))
         report_kernels(kres)
@@ -2016,5 +2021,5 @@ if __name__ == "__main__":
         plain_worker(Path(sys.argv[2]))
     else:
         main({"--kernels": "kernels", "--containers": "containers",
-              "--decoders": "decoders"}.get(
+              "--decoders": "decoders", "--cm": "cm"}.get(
             sys.argv[1] if sys.argv[1:] else "", "full"))

@@ -312,6 +312,20 @@ def _run_streams():
     return streams, np.array([1024, 1024, 1000])
 
 
+# kernel I's window of bytes (kWin in kanzi_tpu_torch/csrc/cm.cu)
+ENCODE_WINDOW = 128
+
+
+def _edge_streams(rng):
+    """6 streams of 0, 1, W - 1, W, W + 1 and 2W + 3 bytes, W kernel I's
+    window: random bytes, then a 10-symbol alphabet."""
+    w = ENCODE_WINDOW
+    lens = np.array([0, 1, w - 1, w, w + 1, 2 * w + 3])
+    streams = rng.integers(0, 256, (6, 2 * w + 3)).astype(np.uint8)
+    streams[3:] = rng.integers(60, 70, (3, 2 * w + 3))
+    return streams, lens
+
+
 def _kernel_case(name):
     """(streams [b, L] u8, lens [b], start state) of one case of the
     needs_cuda tests."""
@@ -333,6 +347,10 @@ def _kernel_case(name):
         return streams, np.array([1024, 1024, 513, 96]), st._replace(
             counter1=torch.from_numpy((rng.integers(
                 0, 2, st.counter1.shape) * tcm.C1_MAX).astype(np.int32)))
+    if name == "window_edges":
+        # streams of 0, 1, W - 1, W, W + 1 and 2W + 3 bytes around kernel
+        # I's window of W bytes, at bsVersion 7
+        return (*_edge_streams(rng), tcm.cm_init_state(6, 7))
     if name == "many":
         # 20 streams of up to 1 KiB, one empty and one of a byte
         lens = rng.integers(0, 1025, 20)
@@ -360,7 +378,7 @@ def _kernel_case(name):
 @pytest.mark.timeout(300)
 @pytest.mark.needs_cuda
 @pytest.mark.parametrize("case", ["ragged", "many", "from_state", "runs",
-                                  "flushes"])
+                                  "flushes", "window_edges"])
 def test_kernels_match_plain_on_cuda(cuda_device, case):
     """Kernels I and J on the card against their plain versions on the
     host's CPU (the same function): I's words, counts and end state; J,
@@ -488,3 +506,127 @@ def test_read_order_model_matches_plain(case):
                            int(ref_end.run_mask[j])), j
         if case != "from_state":
             assert got[0] == streams[j, :m].tolist(), j
+
+
+def _model_encode(streams, lens, cap, st, j):
+    """Stream j of cm_encode as kernel I splits it, plain Python: first
+    the predictor alone over the stream's bytes, every bit step's p12
+    with no coder state (the tables and context registers updated as it
+    goes); then the coder over those p12s a window of
+    ENCODE_WINDOW bytes at a time, in the kernel's words: low and
+    high shifted left by 8 as 32-bit words, the split r1 * (p12 << 20
+    mod 2^32) + ((r1 & M) << 32) + (r0 >> 12) * p12 + add (M all ones
+    where p12 = 4096, add 256 for a 0 bit) for the range r = (high - low)
+    << 8, the new bound masked to the byte grid, a window's flush words
+    staged and then copied to the row from the window's first index,
+    those past cap dropped. Returns (row [cap], flushes, low, high,
+    counter1, counter2, c1, c2, run mask)."""
+    m32, m64 = tcm.MASK_0_32, (1 << 64) - 1
+    c1t = st.counter1[j].tolist()
+    c2t = st.counter2[j].tolist()
+    b1, b2, rm = int(st.c1[j]), int(st.c2[j]), int(st.run_mask[j])
+    n = int(lens[j])
+    ops = []
+    for val in streams[j, :n].tolist():
+        for k in range(8):
+            ctx, bit = (val | 256) >> (8 - k), (val >> (7 - k)) & 1
+            r = ctx * 257
+            t256, tc1, tc2 = c1t[r + 256], c1t[r + b1], c1t[r + b2]
+            p = (13 * (t256 + tc1) + 6 * tc2) >> 5
+            i2 = (ctx | rm) * 17 + (p >> 12)
+            s0, s1 = c2t[i2], c2t[i2 + 1]
+            c1t[r + 256], c1t[r + b1] = _upd(t256, bit, 2), _upd(tc1, bit, 4)
+            c2t[i2], c2t[i2 + 1] = _upd(s0, bit, 6), _upd(s1, bit, 6)
+            ops.append(((p + p + 3 * (s0 + s1) + 64) >> 7, bit))
+        b2, b1 = b1, val
+        rm = 0x100 if b1 == b2 else 0
+    lo, hi = int(st.low[j]) << 8, int(st.high[j]) << 8
+    l0, l1, h0, h1 = lo & m32, lo >> 32, hi & m32, hi >> 32
+    row, cnt, w = [0] * cap, 0, ENCODE_WINDOW
+    for start in range(0, 8 * n, 8 * w):
+        stage = []
+        for p12, bit in ops[start:start + 8 * w]:
+            pw, add = (p12 << 20) & m32, 0 if bit else 256
+            r = (((h1 << 32) | h0) - ((l1 << 32) | l0)) & m64
+            r0, r1 = r & m32, r >> 32
+            t = r1 * pw + (((r1 & (m32 if p12 >> 12 else 0)) << 32)
+                           | ((r0 >> 12) * p12 + add))
+            nb = (((l1 << 32) | l0) + t) & m64
+            n0, n1 = nb & 0xFFFFFF00, nb >> 32
+            flush = n1 == (l1 if bit else h1)
+            if bit:
+                h0, h1 = n0, n1
+            else:
+                l0, l1 = n0, n1
+            if flush:
+                stage.append(n1)
+                l0, l1, h0, h1 = 0, l0, 0xFFFFFF00, h0 | 0xFF
+        for i, word in enumerate(stage):
+            if cnt + i < cap:
+                row[cnt + i] = word
+        cnt += len(stage)
+    return (row, cnt, (l1 << 24) | (l0 >> 8), (h1 << 24) | (h0 >> 8), c1t,
+            c2t, b1, b2, rm)
+
+
+def _window_case(case):
+    """(streams, lens, cap, start state) of one window-model case."""
+    rng = np.random.default_rng(21)
+    if case.startswith("len"):
+        # one length around the window at one bsVersion: a random stream
+        # and one of a 10-symbol alphabet
+        n, bs_version = (int(x) for x in case[3:].split("_bs"))
+        streams, _ = _edge_streams(rng)
+        return (np.ascontiguousarray(streams[[0, 5], :max(n, 1)]),
+                np.array([n, n]), max(n, 1) + 64,
+                tcm.cm_init_state(2, bs_version))
+    if case == "cap":
+        # a flush every ~27 bit steps, the rows capped at 40 words
+        streams, lens, st = _kernel_case("flushes")
+        return streams, lens, 40, st
+    if case == "p12_4096":
+        # counter1 at 65520 and counter2's entries 15 and 16 at 65536:
+        # every step's p12 is 4096, whose P wraps to 0
+        st = tcm.cm_init_state(2, 6)
+        c2 = st.counter2.view(2, 512, 17).clone()
+        c2[:, :, 15:] = tcm.PSCALE
+        return (np.full((2, 300), 0xFF, np.uint8), np.array([300, 7]), 364,
+                st._replace(counter1=torch.full_like(st.counter1,
+                                                     tcm.C1_MAX),
+                            counter2=c2.view(2, -1).contiguous()))
+    streams, lens, st = _kernel_case(case)
+    return streams, lens, streams.shape[1] + 64, st
+
+
+_W = ENCODE_WINDOW
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("case", [
+    f"len{n}_bs{v}" for v in (6, 7)
+    for n in (0, 1, _W - 1, _W, _W + 1, 2 * _W + 3)] + [
+    "from_state", "runs", "cap", "p12_4096"])
+def test_encode_window_model_matches_plain(case):
+    """Kernel I's argument that the predictor needs no coder state, so a
+    producer may run it a window ahead: a model that runs the predictor
+    alone over a stream and then codes its p12s a window at a time, in
+    the kernel's 32-bit words and staged flushes (_model_encode), gives
+    cm_encode_plain's words, flush count and end state, at lengths
+    around the window at bsVersion 6 and 7, from random counters and
+    bounds, on runs (run mask 0x100), with a cap below the flush count
+    and where p12 is 4096."""
+    streams, lens, cap, state = _window_case(case)
+    words, cnt, end = tcm.cm_encode_plain(
+        torch.from_numpy(streams), torch.from_numpy(lens.astype(np.int64)),
+        cap, state)
+    w = words.numpy().view(np.uint32)
+    for j in range(len(lens)):
+        got = _model_encode(streams, lens, cap, state, j)
+        assert got[0] == w[j].tolist(), j
+        assert got[1] == int(cnt[j]), j
+        assert got[2:] == (int(end.low[j]), int(end.high[j]),
+                           end.counter1[j].tolist(),
+                           end.counter2[j].tolist(), int(end.c1[j]),
+                           int(end.c2[j]), int(end.run_mask[j])), j
+    if case == "cap":
+        assert int(cnt.min()) < cap < int(cnt.max())
