@@ -73,7 +73,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    both ways; and timed at that whole input, each kernel apart, the
    forward whole and the inverse (ns per step of a segment's chain and
    of the inverse's, the share of ranks below 8 and 32), against
-   native.sbrt;
+   native.sbrt. K (the LZ match pass: lz_hash K1, torch.sort of its
+   keys, lz_prev_lcp K2) against its plain versions on the card at one
+   4 MiB block of the corpus at hash_log 16 and 19 and on edge inputs
+   (a block of 1 byte, one below 8, a repeated byte, a zero tail,
+   random), where lz_match_pass must also equal the numpy model; K1, the
+   sort and K2 timed apart at the block, with the plain versions, and
+   the whole pass with its host steps (median of 5 on the host's clock)
+   beside native.lzx_forward's parse of the block;
 5. the four container paths, each with the launch counters reset just
    before and read just after: the corpus through kanzi_tpu_torch's
    container with -e ANS0, -e HUFFMAN, -e ANS1 and -e FPAQ (-t NONE,
@@ -124,6 +131,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    (cm_host_blocks); both rates beside the host path's, medians of 3
    runs each in turns, and one torch.profiler / cProfile breakdown each
    of the level-2, 6 and 7 decodes and of the level-7 encode;
+9b. K's path: no container runs the LZ match pass (the port's LZX parse
+   is the native one), so the pass runs as a caller runs it,
+   ops.lz.lz_match_pass over 8 MiB of the corpus at 4 MiB blocks, at
+   hash_log 16 (LZ) and 19 (LZX), the counters reset just before and
+   read just after: K1, K2 and lz_match_pass launched once a pass, each
+   pass's prev and lcp equal to match_pass_plain's on the card;
+9c. the block mesh over more than one shard: parallel.dryrun's
+   dryrun_multichip over the card named 2 and 3 times (3 shards cut
+   some batches unevenly) and, on a machine with several cards, over
+   all of them: the l5, l2, l3 and l6 chains at 1 and k shards and l7
+   at k, each container byte-identical with the host writer's and
+   decoded back, every kernel of a chain launched once a shard, the
+   sharded ANS0 round trip and the MESH_SCALING line;
 10. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
@@ -143,7 +163,13 @@ phase 4's H, I and J only, as ``--kernels`` runs them: the quick check of
 the lockstep binary decoders, ``chip_smoke.py --cm`` I and J alone.
 ``chip_smoke.py --containers``
 runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
-the container rates of two trees compared in one call.)
+the container rates of two trees compared in one call.
+``chip_smoke.py --lz`` runs phases 1-3, phase 4's K, 9b and 9c: the
+quick check of the LZ match pass and the mesh. ``chip_smoke.py --chains
+[TREE]`` runs phases 1-3 and times the level-2 and level-3 mesh chains
+alone, with kanzi_tpu_torch imported from TREE (default this checkout)
+and the corpus made from this checkout: two trees' chain rates compared
+on one corpus in one call.)
 """
 
 import cProfile
@@ -192,7 +218,14 @@ OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
        "huff_code_tables": 4, "huff_pack": 12, "huff_decode": 8,
        "ans1_gather": 11, "ans1_chain": 11, "fpaq_encode": 8 * 24,
        "fpaq_decode": 8 * 24, "sbrt": 10, "cm_encode": 8 * 64,
-       "cm_decode": 8 * 64}
+       "cm_decode": 8 * 64, "lz_hash": 8, "lz_prev_lcp": 4}
+# K1 a position: the window from two words and a funnel shift (3), the
+# shift, the 64-bit multiply (2), the shift and the or with the position
+# (8 with the store); K2 a position: the neighbour's bucket compare, the
+# select and the two stores (4), and a compare of 8-byte windows
+# (LZ_STEP_OPS: two windows' funnel shifts, the xor, the test and the
+# lowest set bit) for each 8 bytes this block's prefixes need
+LZ_STEP_OPS = 6
 # D's table build, per chunk: a sort of its 256 byte counts (256 x 8
 # compare-exchanges of 3 operations); per symbol slot its canonical
 # code (count its length, its rank among the symbols of that length, the
@@ -234,6 +267,10 @@ REPLACES = {
     "sbrt_entry": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
     "sbrt_fwd": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
     "sbrt_inv": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
+    # K: XLA in kanzi_tpu, no Pallas kernel; its hash and keys (K1), then
+    # XLA's sort (here torch.sort), then prev and lcp (K2)
+    "lz_hash": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
+    "lz_prev_lcp": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
 }
 SMALL_ANS1 = (16, 64 << 10)         # F1, F2 against their plain versions
 SMALL_FPAQ = (64, 8 << 10, 2048)    # G, H: streams, bytes, FPAQ chunk bytes
@@ -266,6 +303,7 @@ SMALL_CM = (16, 4 << 10)            # I, J against their plain versions on the
 HOST_CM_BYTES = 32 << 10            # and on the CPU: each of the 16 main-path
                                     # streams' first bytes
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
+LZ_BYTES = 8 * MiB                  # the opt-in LZ path's input
 WORK = ROOT / "build" / "chip_smoke"
 
 
@@ -1674,6 +1712,209 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
     profile("l7 mesh encode", lambda: pp.compress_l7_mesh(corpus, BLOCK))
 
 
+def lz_edges() -> dict:
+    """K's edge inputs: a block of 1 byte, one below 8, one of a repeated
+    byte, one ending in zeros (prefixes run into the padding), and a
+    random one."""
+    rng = np.random.default_rng(SEED)
+    return {"one_byte": np.array([7], np.uint8),
+            "below_8": np.frombuffer(b"abcab", np.uint8).copy(),
+            "repeated": np.full(5000, 0x41, np.uint8),
+            "zero_tail": np.concatenate(
+                [rng.integers(0, 3, 4000, dtype=np.uint8),
+                 np.zeros(1000, np.uint8)]),
+            "random": rng.integers(0, 256, 5000, dtype=np.uint8)}
+
+
+def check_lz_kernel(corpus, dlz, native, dev) -> dict:
+    """K (lz_hash K1, the sort, lz_prev_lcp K2) against its plain
+    versions on the card at one 4 MiB block of the corpus, at hash_log 16
+    (LZ) and 19 (LZX), and on the edge inputs, where lz_match_pass must
+    also equal the numpy model; then K1, the sort and K2 timed apart at
+    the block (hash_log 16), beside the plain versions, the whole pass
+    with its copies and native.lzx_forward's parse of the same block
+    (median of 3 after an untimed call)."""
+    block = np.frombuffer(corpus[:BLOCK], np.uint8)
+    n = len(block)
+    err = {"lz_hash": 0, "lz_prev_lcp": 0}
+    for name, data in [("corpus", block), *lz_edges().items()]:
+        for hl in (16, 19):
+            pad = dlz.pad_block(data, dev)
+            keys = dlz.lz_hash(pad, len(data), hl)
+            err["lz_hash"] = max(err["lz_hash"], max_abs_err(
+                keys, dlz.lz_hash_plain(pad, len(data), hl)))
+            skeys = torch.sort(keys).values
+            got = dlz.lz_prev_lcp(pad, skeys, len(data))
+            want = dlz.lz_prev_lcp_plain(pad, skeys, len(data))
+            err["lz_prev_lcp"] = max(err["lz_prev_lcp"], *(
+                max_abs_err(g, w) for g, w in zip(got, want)))
+            if name != "corpus":
+                prev, lcp = dlz.lz_match_pass(data, hl, dev)
+                gprev, glcp = dlz.match_pass_np(data, hl)
+                if not (np.array_equal(prev, gprev)
+                        and np.array_equal(lcp, glcp)):
+                    fail(f"lz_match_pass differs from match_pass_np on "
+                         f"{name} at hash_log {hl}")
+    pad = dlz.pad_block(block, dev)
+    keys = dlz.lz_hash(pad, n, 16)
+    skeys = torch.sort(keys).values
+    prev, lcp = dlz.lz_prev_lcp(pad, skeys, n)
+    ms1 = median_ms(lambda: dlz.lz_hash(pad, n, 16), 5)
+    sort_ms = median_ms(lambda: torch.sort(keys), 5)
+    # K2's launch alone; its wrapper's range check of the keys (a
+    # reduction and a sync) apart
+    out = (torch.empty_like(prev), torch.empty_like(lcp))
+    ms2 = median_ms(lambda: dlz._launch("lz_prev_lcp", dev, pad, skeys, n,
+                                        *out), 5)
+    check_ms = median_ms(lambda: bool(
+        ((skeys < 0) | ((skeys & 0xFFFFFFFF) >= n)).any()), 5)
+    plain1 = median_ms(lambda: dlz.lz_hash_plain(pad, n, 16), 3)
+    plain2 = median_ms(lambda: dlz.lz_prev_lcp_plain(pad, skeys, n), 3)
+
+    def host_ms(fn, runs: int = 5) -> float:
+        """Median host wall time of `runs` calls, the card idle at each
+        end, after one warm-up call."""
+        fn()
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1000 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    # the whole pass as a caller runs it, and its host steps: the padded
+    # copy of the block and its upload (pad_block), and prev and lcp
+    # brought back through pinned buffers
+    pass_ms = host_ms(lambda: dlz.lz_match_pass(block, 16, dev))
+    pad_ms = host_ms(lambda: dlz.pad_block(block, dev))
+    back_ms = host_ms(lambda: dlz._to_numpy(dev, prev, lcp))
+    native.lzx_forward(block, 16, 4)        # builds the library at first use
+    native_ms = host_ms(lambda: native.lzx_forward(block, 16, 4), 3)
+    # the work this block needs: K2 compares 8-byte windows up to the
+    # first that differs, at most CAP / 8 of them, where prev >= 0
+    live = prev >= 0
+    steps = int(torch.where(live, (lcp // 8 + 1).clamp(max=dlz.CAP // 8),
+                            0).sum())
+    # K's function: the block in, prev and lcp out (keys are scratch)
+    b = split_bound({
+        "lz_hash": (n, OPS["lz_hash"] * n),
+        "lz_prev_lcp": (nbytes(prev, lcp),
+                        OPS["lz_prev_lcp"] * n + LZ_STEP_OPS * steps)})
+    log(f"kernel K (lz_match_pass = lz_hash, torch.sort, lz_prev_lcp): one "
+        f"4 MiB block of the corpus, hash_log 16: K1 lz_hash {ms1} ms, "
+        f"K2 lz_prev_lcp {ms2} ms (its wrapper's key range check "
+        f"{check_ms} ms more); plain K1 {plain1} ms, plain K2 {plain2} ms; "
+        f"bound {b['lz_hash']['bound_ms']} + "
+        f"{b['lz_prev_lcp']['bound_ms']} ms ({b['lz_hash']['bound_by']}); "
+        f"{int(live.sum())} positions with a previous occurrence, "
+        f"{steps} window compares; bit-identical with the plain versions "
+        f"at hash_log 16 and 19 and on {len(lz_edges())} edge inputs "
+        f"(lz_match_pass == match_pass_np there)")
+    log(f"K's sort (torch.sort of K1's {n} keys, the library step between "
+        f"K1 and K2): {sort_ms} ms")
+    log(f"the whole pass (lz_match_pass of the block, host wall time, "
+        f"median of 5): {pass_ms:.3f} ms = pad_block (zeroed copy, pinned "
+        f"staging, upload) {pad_ms:.3f} + K1 {ms1:.3f} + sort "
+        f"{sort_ms:.3f} + key check {check_ms:.3f} + K2 {ms2:.3f} + prev "
+        f"and lcp brought back {back_ms:.3f} + the rest "
+        f"{pass_ms - pad_ms - ms1 - sort_ms - check_ms - ms2 - back_ms:.3f}"
+        f"; native.lzx_forward's parse of the block {native_ms:.3f} ms "
+        f"(median of 3)")
+    return {"lz_hash": dict(err=err["lz_hash"], ms=ms1, plain_ms=plain1,
+                            library_ms=None, shape="one 4 MiB block",
+                            **b["lz_hash"]),
+            "lz_prev_lcp": dict(err=err["lz_prev_lcp"], ms=ms2,
+                                plain_ms=plain2, library_ms=None,
+                                shape="one 4 MiB block", **b["lz_prev_lcp"])}
+
+
+def check_lz_pass(corpus, dlz, dev, launches) -> None:
+    """K's path. No container runs the pass (the port's LZX parse is the
+    native one, transform/lz.py), so a caller runs it through
+    ops.lz.lz_match_pass: the 8 MiB of the corpus at 4 MiB blocks, at
+    hash_log 16 (LZ) and 19 (LZX), the counters reset just before and
+    read just after; K1, K2 and lz_match_pass once a pass, and each
+    pass's prev and lcp equal to match_pass_plain's on the card."""
+    import kanzi_tpu_torch.ops as ops
+    data = np.frombuffer(corpus[:LZ_BYTES], np.uint8)
+    blocks = [data[i:i + BLOCK] for i in range(0, len(data), BLOCK)]
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    outs = [(hl, blk, dlz.lz_match_pass(blk, hl, dev))
+            for hl in (16, 19) for blk in blocks]
+    secs = time.perf_counter() - t0
+    counts = dict(ops.COUNTERS)
+    for k in ("lz_match_pass", "lz_hash", "lz_prev_lcp"):
+        if counts.get(k) != len(outs):
+            fail(f"{k} launched {counts.get(k)} times for {len(outs)} "
+                 "passes")
+    for k in ("lz_hash", "lz_prev_lcp"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    for hl, blk, (prev, lcp) in outs:
+        want = dlz.match_pass_plain(torch.from_numpy(blk.copy()).to(dev), hl)
+        if not (np.array_equal(prev, want[0].cpu().numpy())
+                and np.array_equal(lcp, want[1].cpu().numpy())):
+            fail(f"lz_match_pass differs from match_pass_plain at hash_log "
+                 f"{hl}")
+    log(f"the LZ match pass as a caller runs it (lz_match_pass): "
+        f"{len(data)} bytes at 4 MiB blocks, hash_log 16 and 19, "
+        f"{len(outs)} passes in {secs:.3f} s "
+        f"({2 * len(data) / MiB / secs:.1f} MiB/s); launches {counts}; "
+        f"each pass == match_pass_plain on the card")
+
+
+# the kernels of each chain of parallel.dryrun, each way, that launch
+# once a shard
+MESH_KERNELS = {
+    ("l5", "encode"): ("sbrt_occ", "sbrt_entry", "sbrt_fwd",
+                       "ans0_encode_scan", "ans0_compact"),
+    ("l5", "decode"): ("sbrt_inv", "ans0_decode"),
+    ("l2", "encode"): ("huff_code_tables", "huff_pack"),
+    ("l2", "decode"): ("huff_decode",),
+    ("l3", "encode"): ("huff_code_tables", "huff_pack"),
+    ("l3", "decode"): ("huff_decode",),
+    ("l6", "encode"): ("fpaq_encode",),
+    ("l6", "decode"): ("fpaq_decode",),
+    ("l7", "encode"): ("cm_encode",),
+    ("l7", "decode"): ("cm_decode",),
+}
+
+
+def check_mesh(dev) -> None:
+    """The block mesh over more than one shard: parallel.dryrun over the
+    card named 2 and 3 times (3 shards cut some batches unevenly), and
+    over every card where there are several; each chain's container
+    equal to the host writer's and decoded back (dryrun raises
+    otherwise), and each kernel of a chain launched once a shard."""
+    from kanzi_tpu_torch.parallel import dryrun
+    from kanzi_tpu_torch.parallel.mesh import block_mesh
+    meshes = [(dev,) * 2, (dev,) * 3]
+    if torch.cuda.device_count() > 1:
+        meshes.append(block_mesh())
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        res = dryrun.dryrun_multichip(mesh)
+        k = len(mesh)
+        for (name, way), kernels in MESH_KERNELS.items():
+            for d in ((k,) if name == "l7" else (1, k)):
+                counts = res["launches"][(name, d, way)]
+                for kern in kernels:
+                    if counts.get(kern) != d:
+                        fail(f"mesh of {k} ({[str(x) for x in mesh]}): "
+                             f"the {name} {way} at {d} shard(s) launched "
+                             f"{kern} {counts.get(kern)} times: {counts}")
+        log(f"mesh {[str(x) for x in mesh]}: dryrun_multichip passed in "
+            f"{time.perf_counter() - t0:.1f} s (l5, l2, l3, l6 at 1 and "
+            f"{k} shards, l7 at {k}, every container == the host writer's "
+            f"and decoded back, each chain's kernels once a shard); "
+            f"launches " + "; ".join(
+                f"{n} {w} x{d}: {c}"
+                for (n, d, w), c in res["launches"].items()))
+
+
 def report_kernels(kres: dict) -> None:
     """Print each kernel's line of phase 4; fail on any difference from
     its plain version."""
@@ -1701,11 +1942,36 @@ def report_kernels(kres: dict) -> None:
             fail(f"{k} differs from its plain version")
 
 
-def main(mode: str) -> None:
+def time_chains(corpus, pp, timed, rate) -> None:
+    """--chains: the level-2 and level-3 mesh chains on the corpus at 4
+    MiB blocks, compress then decompress, 3 runs after an untimed one,
+    each decode equal to the corpus; the medians and every run."""
+    import kanzi_tpu_torch
+    log(f"kanzi_tpu_torch from {Path(kanzi_tpu_torch.__file__).parent}")
+    for name in ("l2", "l3"):
+        cm = getattr(pp, f"compress_{name}_mesh")
+        dm = getattr(pp, f"decompress_{name}_mesh")
+        secs = {"encode": [], "decode": []}
+        for i in range(4):
+            blob, te = timed(cm, corpus, BLOCK)
+            out, td = timed(dm, blob)
+            if out != corpus:
+                fail(f"the {name} mesh chain does not decode back")
+            if i:
+                secs["encode"].append(te)
+                secs["decode"].append(td)
+        log(f"{name} mesh chain, medians of 3: " + ", ".join(
+            f"{way} {rate(statistics.median(t))} "
+            f"({statistics.median(t):.4f} s; runs "
+            f"{', '.join(f'{x:.4f}' for x in t)})"
+            for way, t in secs.items()))
+
+
+def main(mode: str, tree: Path = ROOT) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script runs only "
              "on a CUDA card")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(tree))
     workers = {}
     try:
         run(workers, mode)
@@ -1717,9 +1983,10 @@ def main(mode: str) -> None:
 
 
 def run(workers: dict, mode: str) -> None:
-    """Phases 1-10 (mode "full"); 1-4 for A-E, G-J and SBRT only
+    """Phases 1-10 (mode "full"); 1-4 for A-E, G-K and SBRT only
     ("kernels"), for H-J only ("decoders"), for I and J only ("cm"); 1-3
-    and 5 ("containers")."""
+    and 5 ("containers"); 1-3, phase 4's K, 9b and 9c ("lz"); 1-3 and
+    the l2 and l3 mesh chains' times ("chains")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -1765,7 +2032,30 @@ def run(workers: dict, mode: str) -> None:
                                            rank_in))
     full_got = {}
 
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rate(seconds):
+        return f"{len(corpus) / MiB / seconds:.1f} MiB/s"
+
+    if mode == "chains":
+        time_chains(corpus, pp, timed, rate)
+        return
+    # (after --chains, which may import an older tree's package, one
+    # without ops.lz)
+    from kanzi_tpu_torch.ops import lz as dlz
+
     # 4. kernels against their plain versions at the main path's shape
+    if mode == "lz":
+        kres = check_lz_kernel(corpus, dlz, native, dev)
+        report_kernels(kres)
+        check_lz_pass(corpus, dlz, dev, {})
+        check_mesh(dev)
+        return
     if mode in ("decoders", "cm"):
         kres = {} if mode == "cm" else check_fpaq_decode_kernel(
             corpus, dfp, native, dev, None, full_got)
@@ -1788,6 +2078,7 @@ def run(workers: dict, mode: str) -> None:
                                          full_got))
             kres.update(check_sbrt_kernels(rank_in, dsb, native, None,
                                            full_got))
+            kres.update(check_lz_kernel(corpus, dlz, native, dev))
             report_kernels(kres)
             return
         kres.update(check_ans1_kernel(corpus, dans1, native, dev,
@@ -1801,22 +2092,13 @@ def run(workers: dict, mode: str) -> None:
                                      full_got))
         kres.update(check_sbrt_kernels(rank_in, dsb, native,
                                        workers["sbrt"][0], full_got))
+        kres.update(check_lz_kernel(corpus, dlz, native, dev))
         del rank_in
         torch.cuda.empty_cache()
         report_kernels(kres)
 
     # 5. the main paths on the card. An untimed pass over one block of
     # each first builds the native host libraries (g++, at first use).
-    def timed(fn, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def rate(seconds):
-        return f"{len(corpus) / MiB / seconds:.1f} MiB/s"
-
     for entropy in ("ANS0", "HUFFMAN", "ANS1", "FPAQ"):
         warm = kanzi_tpu_torch.compress_bytes(corpus[:BLOCK], "NONE",
                                               entropy, block_size=BLOCK)
@@ -1993,6 +2275,12 @@ def run(workers: dict, mode: str) -> None:
     # 9. the level-2, 3, 6 and 7 mesh chains
     check_mesh_chains(corpus, pp, launches, timed, rate)
 
+    # 9b. K's path: the LZ match pass as a caller runs it
+    check_lz_pass(corpus, dlz, dev, launches)
+
+    # 9c. the block mesh over 2 and 3 shards of the card (and every card)
+    check_mesh(dev)
+
     # F, G, H, I, J and SBRT against their plain versions on the host's
     # CPU
     finish_plain_workers(workers, full_got, kres)
@@ -2019,7 +2307,9 @@ def run(workers: dict, mode: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--plain"]:
         plain_worker(Path(sys.argv[2]))
+    elif sys.argv[1:2] == ["--chains"]:
+        main("chains", Path(sys.argv[2]).resolve() if sys.argv[2:] else ROOT)
     else:
         main({"--kernels": "kernels", "--containers": "containers",
-              "--decoders": "decoders", "--cm": "cm"}.get(
+              "--decoders": "decoders", "--cm": "cm", "--lz": "lz"}.get(
             sys.argv[1] if sys.argv[1:] else "", "full"))

@@ -251,23 +251,16 @@ def decompress_file(in_path, out_path, args, verbose=1):
     return in_size, written
 
 
-_INFO_PRINTER = None
-
-
-def info_file(in_path, args):
+def info_file(in_path, args, printer):
     """-y: header table + first-block validation (the reference runs a
     decompression of block 1 with a NULL sink and an INFO printer,
-    src/app/BlockDecompressor.cpp:78-115)."""
-    global _INFO_PRINTER
-    from kanzi_tpu_torch.app.info_printer import INFO, InfoPrinter
-    if _INFO_PRINTER is None:
-        _INFO_PRINTER = InfoPrinter(max(args.verbose, 1), INFO,
-                                    out=sys.stdout)
+    src/app/BlockDecompressor.cpp:78-115). printer: the run's INFO
+    printer, one for all its files."""
     data = open(in_path, "rb").read()
     ctx = Context({"verbosity": args.verbose, "inputName": in_path,
                    "fileSize": len(data)})
     r = CompressedReader(data, ctx=ctx, device=args.device)
-    r.listeners.add(_INFO_PRINTER)
+    r.listeners.add(printer)
     r.emit_header_event()
     try:
         r.read_all(from_block=1, to_block=2)   # decode block 1 (validation)
@@ -300,8 +293,12 @@ def main(argv=None) -> int:
             files = ioutil.sort_files_by_path_and_size(files, by_size_first=True)
 
         if args.info:
+            # one printer a run, on the stdout of this call (a printer
+            # kept for the process would write to the first caller's)
+            from kanzi_tpu_torch.app.info_printer import INFO, InfoPrinter
+            printer = InfoPrinter(max(args.verbose, 1), INFO, out=sys.stdout)
             for f, _sz in files:
-                info_file(f, args)
+                info_file(f, args, printer)
             return 0
 
         level, transform, entropy = (None, None, None)

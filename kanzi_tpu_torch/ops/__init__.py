@@ -16,6 +16,9 @@ Layout:
 - ops.cm       CM (context-mixing) binary arithmetic encode and decode,
                one stream per block
 - ops.sbrt     SBRT (MTF / RANK / TIMESTAMP) rank automaton, one per block
+- ops.lz       LZ match pass: each position's previous occurrence in its
+               hash bucket and their common prefix (not wired into the
+               LZX parse, which stays native)
 - ops.bwt      suffix array, BWT forward and inverse (torch ops, no kernel)
 - ops._build   nvcc build + ctypes binding of csrc/*.cu
 """
@@ -58,7 +61,8 @@ def device() -> torch.device:
 # ("l6_decode_device_blocks", "l7_decode_device_blocks"), the Huffman
 # coder the full chunks it codes on the host beside the kernels
 # ("huff_host_chunks"), the level-7 mesh chain the CM blocks it leaves to
-# the host coder ("cm_host_blocks").
+# the host coder ("cm_host_blocks"), the LZ match pass each pass on the
+# card ("lz_match_pass", beside its two kernels' own counts).
 # Tests and chip_smoke.py read them to show which path ran.
 COUNTERS = {}
 _COUNT_LOCK = _threading.Lock()

@@ -80,6 +80,12 @@ SIGNATURES = {
         "fpaq_decode": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _P, _P, _P, _P,
                         _P, _I, _P],
     },
+    "lz.cu": {
+        # pad, n, hash_log, keys, device, stream
+        "lz_hash": [_P, _L, _I, _P, _I, _P],
+        # pad, keys, n, prev, lcp, device, stream
+        "lz_prev_lcp": [_P, _P, _L, _P, _P, _I, _P],
+    },
     "sbrt.cu": {
         # blocks, lens, n_blocks, ld, seg, occ_last, occ_sec, device, stream
         "sbrt_occ": [_P, _P, _I, _L, _I, _P, _P, _I, _P],

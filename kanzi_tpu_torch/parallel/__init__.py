@@ -1,4 +1,4 @@
-"""Block parallelism on the card.
+"""Block parallelism over one card or several.
 
 The reference's parallel model is pure block data-parallelism:
 independent blocks fan out to worker threads and commit to the shared
@@ -8,8 +8,10 @@ host commits the container in block order: the level-5 chain's
 transforms and entropy stage, and the entropy stage of the level-2, 3,
 6 and 7 chains (parallel.pipeline). Their FPAQ and CM decodes run
 kernels H and J on the card, where the container's stay on the host's
-native coders, as in kanzi_tpu. The "block" mesh has one device; more
-than one card is ROADMAP item 14.
+native coders, as in kanzi_tpu. The "block" mesh is a tuple of devices,
+every visible card by default; each stage cuts its batch into one shard
+a device (parallel.mesh). parallel.dryrun drives every chain over a mesh
+and its 1-device submesh.
 """
 
 from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,

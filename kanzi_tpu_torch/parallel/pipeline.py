@@ -1,5 +1,5 @@
-"""The device block pipelines of the level-2, 3, 5 and 6 containers on
-one card.
+"""The device block pipelines of the level-2, 3, 5, 6 and 7 containers
+over the block mesh (parallel.mesh).
 
 The PyTorch counterpart of kanzi_tpu/parallel/pipeline.py's mesh chains:
 each container's per-byte stages of a batch of blocks run as one pass on
@@ -24,9 +24,12 @@ of the file is one batched call on the card each way: Huffman's kernels
 D and E for levels 2 and 3, FPAQ's G and H for level 6 and CM's I and J
 for level 7 (one stream a block).
 
-Each container is byte-identical with the host writer's, and its
-decompress_*_mesh inverts it and kanzi_tpu's; the tests and
-chip_smoke.py hold both. More than one card is ROADMAP item 14.
+Over a mesh of several devices every stage that runs on the card is
+cut into one contiguous shard a device (parallel.mesh): the entropy
+stages' chunks or streams, and the level-5 chain's rows of blocks. Each
+container is byte-identical with the host writer's whatever the mesh,
+and its decompress_*_mesh inverts it and kanzi_tpu's; the tests and
+chip_smoke.py hold both.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ from kanzi_tpu_torch.ops import bwt as dbwt
 from kanzi_tpu_torch.ops import cm as dcm
 from kanzi_tpu_torch.ops import huffman as dhuff
 from kanzi_tpu_torch.ops.sbrt import MODE_RANK, sbrt
-from kanzi_tpu_torch.parallel.mesh import (block_mesh, shard_ans0_decode,
+from kanzi_tpu_torch.parallel.mesh import (_run_shards, block_mesh,
+                                           shard_ans0_decode,
                                            shard_ans0_encode,
                                            shard_cm_decode, shard_cm_encode,
                                            shard_fpaq_decode,
@@ -73,6 +77,16 @@ GROUP_BYTES = 64 << 20
 def _groups(rows: list, n: int):
     per = max(1, GROUP_BYTES // n)
     return [rows[g:g + per] for g in range(0, len(rows), per)]
+
+
+def _over_mesh(items: list, n: int, mesh, fn) -> list:
+    """fn(group, device) -> one result an item of the group, over the
+    mesh: the items (blocks of n bytes) cut into len(mesh) contiguous
+    shards (parallel.mesh), each shard's items in groups of GROUP_BYTES
+    on its device (one host thread a distinct device)."""
+    parts = _run_shards(mesh, len(items), lambda a, b, d: [
+        r for group in _groups(items[a:b], n) for r in fn(group, d)])
+    return [r for part in parts for r in part]
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +315,7 @@ def prepare_ans0_batch_mesh(states: list, mesh) -> None:
 
 def compress_l5_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     """The level-5 container with the transform and entropy stages of
-    its full blocks on the mesh's card. The stage-skip decisions (TEXT
+    its full blocks over the mesh. The stage-skip decisions (TEXT
     computeStats, UTF validation, the ZRLT capacity gate, the copy-back
     rule) run on the host from per-block results, as the host pipeline
     makes them. Blocks whose TEXT or UTF stage would run (text) take the
@@ -340,12 +354,13 @@ def compress_l5_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
 
     rows = [b for b in range(full) if device_ok[b]]
     _ops.count("l5_encode_device_blocks", len(rows))
-    results = {}
-    for group in _groups(rows, n):
-        x = torch.from_numpy(blocks[group]).to(dev)
+
+    def forward(group, d):
+        x = torch.from_numpy(blocks[group]).to(d)
         rk, zo, zt = (t.cpu().numpy() for t in _device_l5(x, required))
-        for j, b in enumerate(group):
-            results[b] = (rk[j], zo[j], int(zt[j]))
+        return [(rk[j], zo[j], int(zt[j])) for j in range(len(group))]
+
+    results = dict(zip(rows, _over_mesh(rows, n, mesh, forward)))
 
     states = []
     for b in range(full):
@@ -426,7 +441,7 @@ def _parse_ans0_block(payload, bits: int, block_size: int):
 def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
     """Decode a level-5 container with the ANS0 stage of every full 16
     KiB chunk of the file in one decode call and the inverse transforms
-    (ZRLT, RANK, BWT) of its device-chain blocks on the mesh's card.
+    (ZRLT, RANK, BWT) of its device-chain blocks over the mesh.
     Blocks that ran TEXT or UTF, copy blocks and the last block take the
     host path; the output equals the host reader's either way."""
     if mesh is None:
@@ -493,17 +508,20 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
             out_rows[bi] = host(bi)
 
     _ops.count("l5_decode_device_blocks", len(dev_rows))
-    for group in _groups(dev_rows, n):
+
+    def inverse(group, d):
         zin_pad = max(max(len(e) for _, e, _ in group), rank_len)
         zin = np.zeros((len(group), zin_pad), np.uint8)
         for j, (_, e, _) in enumerate(group):
             zin[j, :len(e)] = e
-        zlen = torch.tensor([len(e) for _, e, _ in group], device=dev)
-        zran = torch.tensor([zr for _, _, zr in group], device=dev)
-        blocks = _device_l5_inv(torch.from_numpy(zin).to(dev), zlen, zran,
-                                rank_len, n, pis).cpu().numpy()
-        for j, (bi, _, _) in enumerate(group):
-            out_rows[bi] = blocks[j]
+        zlen = torch.tensor([len(e) for _, e, _ in group], device=d)
+        zran = torch.tensor([zr for _, _, zr in group], device=d)
+        return list(_device_l5_inv(torch.from_numpy(zin).to(d), zlen, zran,
+                                   rank_len, n, pis).cpu().numpy())
+
+    for (bi, _, _), row in zip(dev_rows, _over_mesh(dev_rows, n, mesh,
+                                                    inverse)):
+        out_rows[bi] = row
 
     return b"".join(np.asarray(out_rows[bi]).tobytes()
                     for bi in range(len(frames)))
@@ -527,7 +545,7 @@ CM_TYPE = entropy_name_to_type(ENTROPY_L7)
 
 def prepare_huffman_batch_mesh(states: list, mesh) -> None:
     """compressed_stream.prepare_huffman_batch over the mesh: every
-    eligible block's full 16 KiB chunks in one encode call (kernel D),
+    eligible block's full 16 KiB chunks in one encode call a shard (kernel D),
     ops enabled or not."""
     elig, counts, chunks = _full_chunks(states, HUFFMAN_TYPE, dhuff.CHUNK)
     if elig:
@@ -536,8 +554,8 @@ def prepare_huffman_batch_mesh(states: list, mesh) -> None:
 
 def prepare_fpaq_batch_mesh(states: list, mesh) -> None:
     """compressed_stream.prepare_fpaq_batch over the mesh: every FPAQ
-    block's bytes one stream, all in one encode call (kernel G), with no
-    gate on their number."""
+    block's bytes one stream, all in one encode call a shard (kernel G),
+    with no gate on their number."""
     elig = _fpaq_blocks(states)
     if elig:
         lens = np.array([st["post_len"] for st in elig], np.int64)
@@ -589,8 +607,8 @@ def _decompress_host_chain_mesh(blob: bytes, mesh, key: str,
 
 def compress_l2_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     """The level-2 container (DNA+LZ & HUFFMAN): DNA and LZ on the host,
-    the Huffman stage of every block in one call (kernel D) on the
-    mesh's card. Byte-identical with the host writer's."""
+    the Huffman stage of every block in one call a shard (kernel D) over the
+    mesh. Byte-identical with the host writer's."""
     return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L2,
                                      ENTROPY_L2, prepare_huffman_batch_mesh)
 
@@ -605,8 +623,8 @@ def _flush_huffman(entries: list, mesh) -> None:
 def decompress_l2_mesh(blob: bytes, mesh=None) -> bytes:
     """Decode a level-2 or level-3 container: the Huffman chunk headers
     parsed on the host (HuffmanDecoder, natively in csrc/huff_parse.cpp),
-    every full chunk of the file in one decode call (kernel E) on the
-    mesh's card, then each block's inverse transforms on the host (the
+    every full chunk of the file in one decode call a shard (kernel E) over the
+    mesh, then each block's inverse transforms on the host (the
     block header names them, so one decoder serves both chains)."""
     return _decompress_host_chain_mesh(blob, mesh, "_huffDecodeSink",
                                        _flush_huffman)
@@ -615,8 +633,8 @@ def decompress_l2_mesh(blob: bytes, mesh=None) -> bytes:
 def compress_l3_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     """The level-3 container (the reference's default level,
     TEXT+UTF+PACK+MM+LZX & HUFFMAN): the transforms on the host, the
-    Huffman stage of every block in one call (kernel D) on the mesh's
-    card. Byte-identical with the host writer's."""
+    Huffman stage of every block in one call a shard (kernel D) over the
+    mesh. Byte-identical with the host writer's."""
     return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L3,
                                      ENTROPY_L3, prepare_huffman_batch_mesh)
 
@@ -629,7 +647,7 @@ def decompress_l3_mesh(blob: bytes, mesh=None) -> bytes:
 def compress_l6_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     """The level-6 container (TEXT+UTF+BWT+SRT+ZRLT & FPAQ): the
     transforms on the host, the FPAQ stage of every block, one stream a
-    block, in one call (kernel G) on the mesh's card. Byte-identical
+    block, in one call a shard (kernel G) over the mesh. Byte-identical
     with the host writer's."""
     return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L6,
                                      ENTROPY_L6, prepare_fpaq_batch_mesh)
@@ -637,7 +655,7 @@ def compress_l6_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
 
 def _flush_fpaq(entries: list, mesh) -> None:
     """Every queued FPAQ block one stream, every chunk of every stream
-    in one decode call (kernel H)."""
+    in one decode call a shard (kernel H)."""
     _ops.count("l6_decode_device_blocks", len(entries))
     lens = np.array([len(out) for out, _ in entries], np.int64)
     dec = shard_fpaq_decode([chunks for _, chunks in entries], lens, mesh,
@@ -649,7 +667,7 @@ def _flush_fpaq(entries: list, mesh) -> None:
 def decompress_l6_mesh(blob: bytes, mesh=None) -> bytes:
     """Decode a level-6 container: the FPAQ chunk framing parsed on the
     host, every chunk of every block (one stream a block) in one decode
-    call (kernel H) on the mesh's card, then each block's inverse
+    call a shard (kernel H) over the mesh, then each block's inverse
     transforms (ZRLT, SRT, BWT, UTF, TEXT) on the host. Counts the
     blocks it decodes on the card as l6_decode_device_blocks."""
     return _decompress_host_chain_mesh(blob, mesh, "_fpaqDecodeSink",
@@ -659,7 +677,7 @@ def decompress_l6_mesh(blob: bytes, mesh=None) -> bytes:
 def prepare_cm_batch_mesh(states: list, mesh) -> None:
     """The CM entropy stage over the mesh: every CM block's post-transform
     bytes one stream, one chunk of the shell (0 < post_len < 2^26, which
-    covers every level-7 block), all in one encode call (kernel I). The
+    covers every level-7 block), all in one encode call a shard (kernel I). The
     host coder takes a block the card cannot (longer, or a stream past
     its CAP words, kanzi_tpu's overflow list), counted as
     cm_host_blocks."""
@@ -685,14 +703,14 @@ def prepare_cm_batch_mesh(states: list, mesh) -> None:
 def compress_l7_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     """The level-7 container (LZP+TEXT+UTF+BWT+LZP & CM): the transforms
     on the host, the CM stage of every block, one stream a block, in one
-    call (kernel I) on the mesh's card. Byte-identical with the host
+    call (kernel I) over the mesh. Byte-identical with the host
     writer's."""
     return _compress_host_chain_mesh(data, block_size, mesh, CHAIN_L7,
                                      ENTROPY_L7, prepare_cm_batch_mesh)
 
 
 def _flush_cm(entries: list, mesh) -> None:
-    """Every queued CM block one stream, all in one decode call (kernel
+    """Every queued CM block one stream, all in one decode call a shard (kernel
     J), at the bsVersion of the container the entries come from."""
     _ops.count("l7_decode_device_blocks", len(entries))
     lens = np.array([len(out) for out, *_ in entries], np.int64)
@@ -705,7 +723,7 @@ def _flush_cm(entries: list, mesh) -> None:
 def decompress_l7_mesh(blob: bytes, mesh=None) -> bytes:
     """Decode a level-7 container: each block's CM framing (its size, the
     56-bit current, the payload) read on the host, every block (one
-    stream a block) in one decode call (kernel J) on the mesh's card,
+    stream a block) in one decode call a shard (kernel J) over the mesh,
     then each block's inverse transforms (LZP, BWT, UTF, TEXT, LZP) on
     the host. Counts the blocks it decodes on the card as
     l7_decode_device_blocks."""

@@ -89,8 +89,10 @@ class LZCodec(ByteTransform):
             return None
         min_match = mm
 
-        # native fast path (byte-identical C++ port, native/lzx.cpp); the
-        # JAX package's opt-in device match pass is not ported
+        # native fast path (byte-identical C++ port, native/lzx.cpp). The
+        # device match pass (ops/lz.py, kernel K) is not wired in: its
+        # hinted stitch, the JAX package's opt-in KANZI_TPU_LZ path, is a
+        # Python loop that gives the same bytes ~100x slower than this
         try:
             from kanzi_tpu_torch.utils import native
             if native.lzx_available():

@@ -106,12 +106,12 @@ def test_zrlt_inverse_matches_jax_on_any_bytes():
 
 
 def test_block_mesh_and_sharded_ans0():
-    """block_mesh gives the one device named, refuses more (ROADMAP item
-    14); shard_ans0_encode's output decodes back through
-    shard_ans0_decode with kanzi_tpu's [C, W] payload rows."""
+    """block_mesh gives the devices named, one or several (a device named
+    twice stands in for two cards); shard_ans0_encode's output decodes
+    back through shard_ans0_decode with kanzi_tpu's [C, W] payload
+    rows."""
     assert tmesh.block_mesh([CPU]) == (CPU,)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmesh.block_mesh([CPU, CPU])
+    assert tmesh.block_mesh([CPU, CPU]) == (CPU, CPU)
     rng = np.random.default_rng(3)
     chunks = rng.integers(0, 40, (2, tans.CHUNK), dtype=np.uint8)
     chunks[1] = 7                                   # header-only chunk
