@@ -73,14 +73,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    both ways; and timed at that whole input, each kernel apart, the
    forward whole and the inverse (ns per step of a segment's chain and
    of the inverse's, the share of ranks below 8 and 32), against
-   native.sbrt. K (the LZ match pass: lz_hash K1, torch.sort of its
-   keys, lz_prev_lcp K2) against its plain versions on the card at one
-   4 MiB block of the corpus at hash_log 16 and 19 and on edge inputs
-   (a block of 1 byte, one below 8, a repeated byte, a zero tail,
-   random), where lz_match_pass must also equal the numpy model; K1, the
-   sort and K2 timed apart at the block, with the plain versions, and
-   the whole pass with its host steps (median of 5 on the host's clock)
-   beside native.lzx_forward's parse of the block;
+   native.sbrt. K (the LZ match pass: each digit pass's lz_count,
+   lz_scan and lz_scatter, then lz_lcp) against its plain versions on
+   the card, each kernel fed the same inputs as its plain version, at
+   one 4 MiB block of the corpus and a 4 MiB block in one bucket (all
+   zeros), at hash_log 16 and 19, and on edge inputs (a block of 1 byte,
+   one below 8, a repeated byte, a zero tail, random, three tiles' worth
+   of text), where lz_match_pass must also equal the numpy model; K's
+   device part timed as one CUDA-event span (a caller's pass, and passes
+   queued back to back) with each kernel's time beside it (its launches
+   of one pass, queued), the plain versions, torch.sort of the keys
+   (the step the old design sorted with), and the whole pass with its
+   host steps (median of 5 on the host's clock) beside
+   native.lzx_forward's parse of the block;
 5. the four container paths, each with the launch counters reset just
    before and read just after: the corpus through kanzi_tpu_torch's
    container with -e ANS0, -e HUFFMAN, -e ANS1 and -e FPAQ (-t NONE,
@@ -135,8 +140,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    is the native one), so the pass runs as a caller runs it,
    ops.lz.lz_match_pass over 8 MiB of the corpus at 4 MiB blocks, at
    hash_log 16 (LZ) and 19 (LZX), the counters reset just before and
-   read just after: K1, K2 and lz_match_pass launched once a pass, each
-   pass's prev and lcp equal to match_pass_plain's on the card;
+   read just after: lz_count, lz_scan and lz_scatter once a digit pass
+   (2 a pass at hash_log 16 and 19), lz_lcp and lz_match_pass once a
+   pass, each pass's prev and lcp equal to match_pass_plain's on the
+   card;
 9c. the block mesh over more than one shard: parallel.dryrun's
    dryrun_multichip over the card named 2 and 3 times (3 shards cut
    some batches unevenly) and, on a machine with several cards, over
@@ -165,7 +172,11 @@ the lockstep binary decoders, ``chip_smoke.py --cm`` I and J alone.
 runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
 the container rates of two trees compared in one call.
 ``chip_smoke.py --lz`` runs phases 1-3, phase 4's K, 9b and 9c: the
-quick check of the LZ match pass and the mesh. ``chip_smoke.py --chains
+quick check of the LZ match pass and the mesh. ``chip_smoke.py --lz
+TREE`` runs phases 1-3 and times K alone (its device part and the whole
+pass at one 4 MiB block, hash_log 16 and 19) with kanzi_tpu_torch
+imported from TREE, whichever design of K that tree has: run it parent,
+change, change, parent in one call. ``chip_smoke.py --chains
 [TREE]`` runs phases 1-3 and times the level-2 and level-3 mesh chains
 alone, with kanzi_tpu_torch imported from TREE (default this checkout)
 and the corpus made from this checkout: two trees' chain rates compared
@@ -218,13 +229,16 @@ OPS = {"ans0_encode_scan": 12, "ans0_compact": 4, "ans0_decode": 12,
        "huff_code_tables": 4, "huff_pack": 12, "huff_decode": 8,
        "ans1_gather": 11, "ans1_chain": 11, "fpaq_encode": 8 * 24,
        "fpaq_decode": 8 * 24, "sbrt": 10, "cm_encode": 8 * 64,
-       "cm_decode": 8 * 64, "lz_hash": 8, "lz_prev_lcp": 4}
-# K1 a position: the window from two words and a funnel shift (3), the
-# shift, the 64-bit multiply (2), the shift and the or with the position
-# (8 with the store); K2 a position: the neighbour's bucket compare, the
-# select and the two stores (4), and a compare of 8-byte windows
-# (LZ_STEP_OPS: two windows' funnel shifts, the xor, the test and the
-# lowest set bit) for each 8 bytes this block's prefixes need
+       "cm_decode": 8 * 64, "lz_count": 8, "lz_scan": 0, "lz_scatter": 4,
+       "lz_lcp": 0}
+# K's function, each operation counted once in the kernel that does it,
+# none of the sort's (a design's): the hash a position in lz_count (the
+# window from two words and a funnel shift (3), the shift, the 64-bit
+# multiply (2), the shift, the key: 8); prev a position in lz_scatter
+# (the neighbour's bucket compare, the select, the store: 4); in lz_lcp a
+# compare of 8-byte windows (LZ_STEP_OPS: two windows' funnel shifts, the
+# xor, the test and the lowest set bit) for each 8 bytes this block's
+# prefixes need
 LZ_STEP_OPS = 6
 # D's table build, per chunk: a sort of its 256 byte counts (256 x 8
 # compare-exchanges of 3 operations); per symbol slot its canonical
@@ -267,10 +281,13 @@ REPLACES = {
     "sbrt_entry": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
     "sbrt_fwd": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
     "sbrt_inv": ("sbrt.cu", "kanzi_tpu/ops/sbrt.py:33"),
-    # K: XLA in kanzi_tpu, no Pallas kernel; its hash and keys (K1), then
-    # XLA's sort (here torch.sort), then prev and lcp (K2)
-    "lz_hash": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
-    "lz_prev_lcp": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
+    # K: XLA in kanzi_tpu, no Pallas kernel (its hash, sort, prev and lcp,
+    # _match_fn :80-104): a radix sort's count, scan and scatter a digit
+    # pass, the last scatter writing prev, then lcp
+    "lz_count": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
+    "lz_scan": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
+    "lz_scatter": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
+    "lz_lcp": ("lz.cu", "kanzi_tpu/ops/lz.py:108"),
 }
 SMALL_ANS1 = (16, 64 << 10)         # F1, F2 against their plain versions
 SMALL_FPAQ = (64, 8 << 10, 2048)    # G, H: streams, bytes, FPAQ chunk bytes
@@ -1712,10 +1729,13 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
     profile("l7 mesh encode", lambda: pp.compress_l7_mesh(corpus, BLOCK))
 
 
+LZ_KERNELS = ("lz_count", "lz_scan", "lz_scatter", "lz_lcp")
+
+
 def lz_edges() -> dict:
     """K's edge inputs: a block of 1 byte, one below 8, one of a repeated
-    byte, one ending in zeros (prefixes run into the padding), and a
-    random one."""
+    byte, one ending in zeros (prefixes run into the padding), a random
+    one, and text over three tiles, the last one short."""
     rng = np.random.default_rng(SEED)
     return {"one_byte": np.array([7], np.uint8),
             "below_8": np.frombuffer(b"abcab", np.uint8).copy(),
@@ -1723,32 +1743,127 @@ def lz_edges() -> dict:
             "zero_tail": np.concatenate(
                 [rng.integers(0, 3, 4000, dtype=np.uint8),
                  np.zeros(1000, np.uint8)]),
-            "random": rng.integers(0, 256, 5000, dtype=np.uint8)}
+            "random": rng.integers(0, 256, 5000, dtype=np.uint8),
+            "tiles_text": np.frombuffer(
+                (b"digit passes, tile by tile; " * 700)[:17384],
+                np.uint8).copy()}
+
+
+def wall_ms(fn, runs: int = 5) -> float:
+    """Median host wall time of `runs` calls, the card idle at each end,
+    after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1000 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps: int = 10, runs: int = 5) -> float:
+    """Device time of one call of fn with `reps` calls queued back to back
+    between two CUDA events (median of `runs`), after a warm-up call: the
+    card's time where the host launches faster than it runs."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def kernel_device_ms(fn, names, runs: int = 5) -> dict:
+    """Each named kernel's device time in one call of fn, from
+    torch.profiler over `runs` calls: the sum of its launches a call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for k in names:
+                if f"{k}_kernel" in evt.name:
+                    us[k] += evt.time_range.elapsed_us()
+    if not all(us.values()):
+        fail(f"torch.profiler saw no device time for some of {us}")
+    return {k: v / 1000 / runs for k, v in us.items()}
+
+
+def lz_diff(err: dict, kernel: str, got, want) -> None:
+    """Raise err[kernel] to the largest difference of got from want,
+    tensors or None alike."""
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            fail(f"{kernel}: returned {g is None and 'None'} where its plain "
+                 f"version returned {w is None and 'None'}")
+        if g is not None:
+            err[kernel] = max(err[kernel], max_abs_err(g, w))
+
+
+def lz_steps(dlz, pad, n: int, hl: int, err: dict) -> tuple:
+    """Each kernel of K against its plain version on the same inputs, one
+    digit pass after another, then lcp; err raised to the largest
+    difference. Returns each pass's plain inputs (keys, counts and last,
+    lz_scan's outputs) and the plain prev."""
+    keys = None
+    steps = []
+    for p in range(len(dlz.digit_plan(hl))):
+        counts = dlz.lz_count_plain(pad, keys, n, hl, p)
+        lz_diff(err, "lz_count", dlz.lz_count(pad, keys, n, hl, p), counts)
+        scan = dlz.lz_scan_plain(*counts)
+        lz_diff(err, "lz_scan", dlz.lz_scan(*counts), scan)
+        out = dlz.lz_scatter_plain(pad, keys, n, hl, p)
+        lz_diff(err, "lz_scatter", (dlz.lz_scatter(
+            pad, keys, n, hl, p, *scan, check=False),), (out,))
+        steps.append((p, keys, counts, scan))
+        keys = out
+    lz_diff(err, "lz_lcp", (dlz.lz_lcp(pad, keys, n, check=False),),
+            (dlz.lz_lcp_plain(pad, keys, n),))
+    return steps, keys
 
 
 def check_lz_kernel(corpus, dlz, native, dev) -> dict:
-    """K (lz_hash K1, the sort, lz_prev_lcp K2) against its plain
-    versions on the card at one 4 MiB block of the corpus, at hash_log 16
-    (LZ) and 19 (LZX), and on the edge inputs, where lz_match_pass must
-    also equal the numpy model; then K1, the sort and K2 timed apart at
-    the block (hash_log 16), beside the plain versions, the whole pass
-    with its copies and native.lzx_forward's parse of the same block
-    (median of 3 after an untimed call)."""
+    """K (each digit pass's lz_count, lz_scan and lz_scatter, then
+    lz_lcp) against its plain versions on the card, each kernel on its
+    plain version's inputs: at one 4 MiB block of the corpus and a 4 MiB
+    block in one bucket, at hash_log 16 (LZ) and 19 (LZX), and on the
+    edge inputs, where lz_match_pass must also equal the numpy model;
+    every pass (match_pass_kernels) equal to match_pass_plain. Then at the
+    corpus block: K's device part as one CUDA-event span (a caller's
+    pass, median of 9; and passes queued back to back), each kernel's
+    device time in a pass (torch.profiler, its launches summed), the plain
+    versions, torch.sort of the keys, the whole pass with its host steps
+    and native.lzx_forward's parse of the block."""
     block = np.frombuffer(corpus[:BLOCK], np.uint8)
     n = len(block)
-    err = {"lz_hash": 0, "lz_prev_lcp": 0}
-    for name, data in [("corpus", block), *lz_edges().items()]:
+    err = dict.fromkeys(LZ_KERNELS, 0)
+    cases = [("corpus", block), ("one_bucket", np.zeros(BLOCK, np.uint8)),
+             *lz_edges().items()]
+    for name, data in cases:
         for hl in (16, 19):
             pad = dlz.pad_block(data, dev)
-            keys = dlz.lz_hash(pad, len(data), hl)
-            err["lz_hash"] = max(err["lz_hash"], max_abs_err(
-                keys, dlz.lz_hash_plain(pad, len(data), hl)))
-            skeys = torch.sort(keys).values
-            got = dlz.lz_prev_lcp(pad, skeys, len(data))
-            want = dlz.lz_prev_lcp_plain(pad, skeys, len(data))
-            err["lz_prev_lcp"] = max(err["lz_prev_lcp"], *(
-                max_abs_err(g, w) for g, w in zip(got, want)))
-            if name != "corpus":
+            lz_steps(dlz, pad, len(data), hl, err)
+            got = dlz.match_pass_kernels(pad, len(data), hl)
+            want = dlz.match_pass_plain(torch.from_numpy(data.copy()).to(dev),
+                                        hl)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"match_pass_kernels differs from match_pass_plain on "
+                     f"{name} at hash_log {hl}")
+            if len(data) < BLOCK:
                 prev, lcp = dlz.lz_match_pass(data, hl, dev)
                 gprev, glcp = dlz.match_pass_np(data, hl)
                 if not (np.array_equal(prev, gprev)
@@ -1756,78 +1871,76 @@ def check_lz_kernel(corpus, dlz, native, dev) -> dict:
                     fail(f"lz_match_pass differs from match_pass_np on "
                          f"{name} at hash_log {hl}")
     pad = dlz.pad_block(block, dev)
-    keys = dlz.lz_hash(pad, n, 16)
-    skeys = torch.sort(keys).values
-    prev, lcp = dlz.lz_prev_lcp(pad, skeys, n)
-    ms1 = median_ms(lambda: dlz.lz_hash(pad, n, 16), 5)
+    times = {}
+    for hl in (16, 19):
+        span = median_ms(lambda: dlz.match_pass_kernels(pad, n, hl), 9)
+        queued = queued_ms(lambda: dlz.match_pass_kernels(pad, n, hl))
+        each = kernel_device_ms(lambda: dlz.match_pass_kernels(pad, n, hl),
+                                LZ_KERNELS)
+        times[hl] = (span, queued, each)
+        log(f"K's device part (match_pass_kernels: {len(dlz.digit_plan(hl))}"
+            f" digit passes of count, scan, scatter, then lcp), one 4 MiB "
+            f"block of the corpus, hash_log {hl}: {span} ms a caller's pass "
+            f"(CUDA events, median of 9), {queued} ms a pass queued back to "
+            f"back; device time a pass (torch.profiler): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in each.items())
+            + f" (sum {sum(each.values()):.4f})")
+    steps, prev = lz_steps(dlz, pad, n, 16, dict.fromkeys(LZ_KERNELS, 0))
+    lcp = dlz.lz_lcp_plain(pad, prev, n)
+    plain = {
+        "lz_count": lambda: [dlz.lz_count_plain(pad, k, n, 16, p)
+                             for p, k, _, _ in steps],
+        "lz_scan": lambda: [dlz.lz_scan_plain(*c) for _, _, c, _ in steps],
+        "lz_scatter": lambda: [dlz.lz_scatter_plain(pad, k, n, 16, p)
+                               for p, k, _, _ in steps],
+        "lz_lcp": lambda: dlz.lz_lcp_plain(pad, prev, n)}
+    plain_ms = {k: median_ms(fn, 3) for k, fn in plain.items()}
+    keys = dlz.block_keys_plain(pad, n, 16)
     sort_ms = median_ms(lambda: torch.sort(keys), 5)
-    # K2's launch alone; its wrapper's range check of the keys (a
-    # reduction and a sync) apart
-    out = (torch.empty_like(prev), torch.empty_like(lcp))
-    ms2 = median_ms(lambda: dlz._launch("lz_prev_lcp", dev, pad, skeys, n,
-                                        *out), 5)
-    check_ms = median_ms(lambda: bool(
-        ((skeys < 0) | ((skeys & 0xFFFFFFFF) >= n)).any()), 5)
-    plain1 = median_ms(lambda: dlz.lz_hash_plain(pad, n, 16), 3)
-    plain2 = median_ms(lambda: dlz.lz_prev_lcp_plain(pad, skeys, n), 3)
-
-    def host_ms(fn, runs: int = 5) -> float:
-        """Median host wall time of `runs` calls, the card idle at each
-        end, after one warm-up call."""
-        fn()
-        times = []
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(1000 * (time.perf_counter() - t0))
-        return statistics.median(times)
-
-    # the whole pass as a caller runs it, and its host steps: the padded
-    # copy of the block and its upload (pad_block), and prev and lcp
-    # brought back through pinned buffers
-    pass_ms = host_ms(lambda: dlz.lz_match_pass(block, 16, dev))
-    pad_ms = host_ms(lambda: dlz.pad_block(block, dev))
-    back_ms = host_ms(lambda: dlz._to_numpy(dev, prev, lcp))
+    # the whole pass as a caller runs it, and its host steps: the block's
+    # upload and padding (pad_block), and prev and lcp brought back
+    # through pinned buffers
+    pass_ms = wall_ms(lambda: dlz.lz_match_pass(block, 16, dev))
+    pad_ms = wall_ms(lambda: dlz.pad_block(block, dev))
+    back_ms = wall_ms(lambda: dlz._to_numpy(dev, prev, lcp))
     native.lzx_forward(block, 16, 4)        # builds the library at first use
-    native_ms = host_ms(lambda: native.lzx_forward(block, 16, 4), 3)
-    # the work this block needs: K2 compares 8-byte windows up to the
+    native_ms = wall_ms(lambda: native.lzx_forward(block, 16, 4), 3)
+    # the work this block needs: lcp compares 8-byte windows up to the
     # first that differs, at most CAP / 8 of them, where prev >= 0
     live = prev >= 0
-    steps = int(torch.where(live, (lcp // 8 + 1).clamp(max=dlz.CAP // 8),
-                            0).sum())
-    # K's function: the block in, prev and lcp out (keys are scratch)
+    cmps = int(torch.where(live, (lcp // 8 + 1).clamp(max=dlz.CAP // 8),
+                           0).sum())
+    # K's function: the block in, prev and lcp out (keys, counts and
+    # offsets are the design's scratch)
     b = split_bound({
-        "lz_hash": (n, OPS["lz_hash"] * n),
-        "lz_prev_lcp": (nbytes(prev, lcp),
-                        OPS["lz_prev_lcp"] * n + LZ_STEP_OPS * steps)})
-    log(f"kernel K (lz_match_pass = lz_hash, torch.sort, lz_prev_lcp): one "
-        f"4 MiB block of the corpus, hash_log 16: K1 lz_hash {ms1} ms, "
-        f"K2 lz_prev_lcp {ms2} ms (its wrapper's key range check "
-        f"{check_ms} ms more); plain K1 {plain1} ms, plain K2 {plain2} ms; "
-        f"bound {b['lz_hash']['bound_ms']} + "
-        f"{b['lz_prev_lcp']['bound_ms']} ms ({b['lz_hash']['bound_by']}); "
-        f"{int(live.sum())} positions with a previous occurrence, "
-        f"{steps} window compares; bit-identical with the plain versions "
-        f"at hash_log 16 and 19 and on {len(lz_edges())} edge inputs "
-        f"(lz_match_pass == match_pass_np there)")
-    log(f"K's sort (torch.sort of K1's {n} keys, the library step between "
-        f"K1 and K2): {sort_ms} ms")
+        "lz_count": (n, OPS["lz_count"] * n),
+        "lz_scan": (0, 0),
+        "lz_scatter": (nbytes(prev), OPS["lz_scatter"] * n),
+        "lz_lcp": (nbytes(lcp), LZ_STEP_OPS * cmps)})
+    span, queued, each = times[16]
+    log(f"kernel K at hash_log 16: bound "
+        + " + ".join(f"{b[k]['bound_ms']}" for k in LZ_KERNELS)
+        + f" ms ({b['lz_count']['bound_by']}; K's function: the block in, "
+        f"prev and lcp out); plain versions " + ", ".join(
+            f"{k} {v:.3f}" for k, v in plain_ms.items())
+        + f" ms; {int(live.sum())} positions with a previous occurrence, "
+        f"{cmps} window compares; bit-identical with the plain versions "
+        f"at hash_log 16 and 19 on the corpus block, a 4 MiB block in one "
+        f"bucket and {len(lz_edges())} edge inputs (lz_match_pass == "
+        f"match_pass_np there)")
+    log(f"torch.sort of the block's {n} int64 keys (the old design's step "
+        f"between its two kernels): {sort_ms} ms")
     log(f"the whole pass (lz_match_pass of the block, host wall time, "
-        f"median of 5): {pass_ms:.3f} ms = pad_block (zeroed copy, pinned "
-        f"staging, upload) {pad_ms:.3f} + K1 {ms1:.3f} + sort "
-        f"{sort_ms:.3f} + key check {check_ms:.3f} + K2 {ms2:.3f} + prev "
-        f"and lcp brought back {back_ms:.3f} + the rest "
-        f"{pass_ms - pad_ms - ms1 - sort_ms - check_ms - ms2 - back_ms:.3f}"
-        f"; native.lzx_forward's parse of the block {native_ms:.3f} ms "
+        f"median of 5): {pass_ms:.3f} ms = pad_block (pinned staging, "
+        f"upload, the tail zeroed on the card) {pad_ms:.3f} + K's device "
+        f"part {span:.3f} + prev and lcp brought back {back_ms:.3f} + the "
+        f"rest {pass_ms - pad_ms - span - back_ms:.3f}; "
+        f"native.lzx_forward's parse of the block {native_ms:.3f} ms "
         f"(median of 3)")
-    return {"lz_hash": dict(err=err["lz_hash"], ms=ms1, plain_ms=plain1,
-                            library_ms=None, shape="one 4 MiB block",
-                            **b["lz_hash"]),
-            "lz_prev_lcp": dict(err=err["lz_prev_lcp"], ms=ms2,
-                                plain_ms=plain2, library_ms=None,
-                                shape="one 4 MiB block", **b["lz_prev_lcp"])}
+    return {k: dict(err=err[k], ms=each[k], plain_ms=plain_ms[k],
+                    library_ms=None,
+                    shape="one 4 MiB block, hash_log 16; device time a pass",
+                    **b[k]) for k in LZ_KERNELS}
 
 
 def check_lz_pass(corpus, dlz, dev, launches) -> None:
@@ -1835,8 +1948,9 @@ def check_lz_pass(corpus, dlz, dev, launches) -> None:
     native one, transform/lz.py), so a caller runs it through
     ops.lz.lz_match_pass: the 8 MiB of the corpus at 4 MiB blocks, at
     hash_log 16 (LZ) and 19 (LZX), the counters reset just before and
-    read just after; K1, K2 and lz_match_pass once a pass, and each
-    pass's prev and lcp equal to match_pass_plain's on the card."""
+    read just after; lz_count, lz_scan and lz_scatter once a digit pass,
+    lz_lcp and lz_match_pass once a pass, and each pass's prev and lcp
+    equal to match_pass_plain's on the card."""
     import kanzi_tpu_torch.ops as ops
     data = np.frombuffer(corpus[:LZ_BYTES], np.uint8)
     blocks = [data[i:i + BLOCK] for i in range(0, len(data), BLOCK)]
@@ -1847,11 +1961,13 @@ def check_lz_pass(corpus, dlz, dev, launches) -> None:
             for hl in (16, 19) for blk in blocks]
     secs = time.perf_counter() - t0
     counts = dict(ops.COUNTERS)
-    for k in ("lz_match_pass", "lz_hash", "lz_prev_lcp"):
-        if counts.get(k) != len(outs):
-            fail(f"{k} launched {counts.get(k)} times for {len(outs)} "
-                 "passes")
-    for k in ("lz_hash", "lz_prev_lcp"):
+    digit_passes = sum(len(dlz.digit_plan(hl)) for hl, _, _ in outs)
+    want = {"lz_match_pass": len(outs), "lz_lcp": len(outs),
+            **dict.fromkeys(("lz_count", "lz_scan", "lz_scatter"),
+                            digit_passes)}
+    if counts != want:
+        fail(f"the {len(outs)} passes launched {counts}, expected {want}")
+    for k in LZ_KERNELS:
         launches[k] = launches.get(k, 0) + counts[k]
     for hl, blk, (prev, lcp) in outs:
         want = dlz.match_pass_plain(torch.from_numpy(blk.copy()).to(dev), hl)
@@ -1864,6 +1980,43 @@ def check_lz_pass(corpus, dlz, dev, launches) -> None:
         f"{len(outs)} passes in {secs:.3f} s "
         f"({2 * len(data) / MiB / secs:.1f} MiB/s); launches {counts}; "
         f"each pass == match_pass_plain on the card")
+
+
+def time_lz(corpus, dev) -> None:
+    """--lz TREE: K alone with the package that TREE holds, whichever
+    design of K it has, at one 4 MiB block of the corpus, hash_log 16 and
+    19: the device part (a caller's pass, CUDA events, median of 9; and
+    passes queued back to back), each equal to match_pass_plain, then the
+    whole pass and pad_block on the host's clock (medians of 5)."""
+    import kanzi_tpu_torch
+    from kanzi_tpu_torch.ops import lz as dlz
+    log(f"kanzi_tpu_torch from {Path(kanzi_tpu_torch.__file__).parent}")
+    block = np.frombuffer(corpus[:BLOCK], np.uint8)
+    n = len(block)
+    pad = dlz.pad_block(block, dev)
+    for hl in (16, 19):
+        if hasattr(dlz, "match_pass_kernels"):
+            design = "digit passes of count, scan, scatter, then lcp"
+
+            def part():
+                return dlz.match_pass_kernels(pad, n, hl)
+        else:
+            design = "lz_hash, torch.sort, key check, lz_prev_lcp"
+
+            def part():
+                keys = torch.sort(dlz.lz_hash(pad, n, hl)).values
+                return dlz.lz_prev_lcp(pad, keys, n)
+        want = dlz.match_pass_plain(torch.from_numpy(block.copy()).to(dev), hl)
+        if not all(torch.equal(g, w) for g, w in zip(part(), want)):
+            fail(f"K differs from match_pass_plain at hash_log {hl}")
+        span = median_ms(part, 9)
+        queued = queued_ms(part)
+        pass_ms = wall_ms(lambda: dlz.lz_match_pass(block, hl, dev))
+        pad_ms = wall_ms(lambda: dlz.pad_block(block, dev))
+        log(f"K ({design}), one 4 MiB block, hash_log {hl}: device part "
+            f"{span} ms (CUDA events, median of 9), {queued} ms a pass "
+            f"queued back to back; the whole pass {pass_ms:.4f} ms, "
+            f"pad_block {pad_ms:.4f} ms (host wall, medians of 5)")
 
 
 # the kernels of each chain of parallel.dryrun, each way, that launch
@@ -1986,7 +2139,8 @@ def run(workers: dict, mode: str) -> None:
     """Phases 1-10 (mode "full"); 1-4 for A-E, G-K and SBRT only
     ("kernels"), for H-J only ("decoders"), for I and J only ("cm"); 1-3
     and 5 ("containers"); 1-3, phase 4's K, 9b and 9c ("lz"); 1-3 and
-    the l2 and l3 mesh chains' times ("chains")."""
+    the l2 and l3 mesh chains' times ("chains"); 1-3 and K's times
+    ("lz_time")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -2021,7 +2175,8 @@ def run(workers: dict, mode: str) -> None:
 
     # 3. corpus and the level-5 chain's RANK input; the plain workers of
     # F, G and SBRT start on them
-    corpus = make_corpus(N_CHUNKS * dans.CHUNK)
+    corpus = make_corpus(BLOCK if mode == "lz_time"
+                         else N_CHUNKS * dans.CHUNK)
     log(f"corpus: {len(corpus)} bytes")
     dev = torch.device("cuda", 0)
     if mode in ("full", "kernels"):
@@ -2045,8 +2200,11 @@ def run(workers: dict, mode: str) -> None:
     if mode == "chains":
         time_chains(corpus, pp, timed, rate)
         return
-    # (after --chains, which may import an older tree's package, one
-    # without ops.lz)
+    if mode == "lz_time":
+        time_lz(corpus, dev)
+        return
+    # (after --chains and --lz TREE, which may import an older tree's
+    # package, one without ops.lz or with another design of it)
     from kanzi_tpu_torch.ops import lz as dlz
 
     # 4. kernels against their plain versions at the main path's shape
@@ -2309,6 +2467,8 @@ if __name__ == "__main__":
         plain_worker(Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--chains"]:
         main("chains", Path(sys.argv[2]).resolve() if sys.argv[2:] else ROOT)
+    elif sys.argv[1:2] == ["--lz"] and sys.argv[2:]:
+        main("lz_time", Path(sys.argv[2]).resolve())
     else:
         main({"--kernels": "kernels", "--containers": "containers",
               "--decoders": "decoders", "--cm": "cm", "--lz": "lz"}.get(

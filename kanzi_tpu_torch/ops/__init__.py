@@ -62,7 +62,7 @@ def device() -> torch.device:
 # coder the full chunks it codes on the host beside the kernels
 # ("huff_host_chunks"), the level-7 mesh chain the CM blocks it leaves to
 # the host coder ("cm_host_blocks"), the LZ match pass each pass on the
-# card ("lz_match_pass", beside its two kernels' own counts).
+# card ("lz_match_pass", beside its four kernels' own counts).
 # Tests and chip_smoke.py read them to show which path ran.
 COUNTERS = {}
 _COUNT_LOCK = _threading.Lock()

@@ -81,10 +81,15 @@ SIGNATURES = {
                         _P, _I, _P],
     },
     "lz.cu": {
-        # pad, n, hash_log, keys, device, stream
-        "lz_hash": [_P, _L, _I, _P, _I, _P],
-        # pad, keys, n, prev, lcp, device, stream
-        "lz_prev_lcp": [_P, _P, _L, _P, _P, _I, _P],
+        # pad, keys, n, hash_log, shift, bits, counts, last, device, stream
+        "lz_count": [_P, _P, _L, _I, _I, _I, _P, _P, _I, _P],
+        # counts, last, bits, tiles, offs, totals, pred, device, stream
+        "lz_scan": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+        # pad, keys, n, hash_log, shift, bits, offs, totals, pred, out,
+        # prev, device, stream
+        "lz_scatter": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+        # pad, prev, n, lcp, device, stream
+        "lz_lcp": [_P, _P, _L, _P, _I, _P],
     },
     "sbrt.cu": {
         # blocks, lens, n_blocks, ld, seg, occ_last, occ_sec, device, stream
