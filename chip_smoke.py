@@ -107,9 +107,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    CLI's entry point (kanzi_tpu_torch.app.cli.main, in this process, the
    counters reset just before and read just after), on the card and
    then on the host path: the outputs byte-identical, every kernel of
-   the level's path launched, both rates printed side by side; and the
-   default level's decompress 5 more times on each path, in turns, with
-   the medians;
+   the level's path launched (at the default level K's four too, where
+   the LZ transform's gate holds at its 4 MiB blocks), both rates
+   printed side by side; and the default level's decompress 5 more
+   times on each path, in turns, with the medians;
 8. the device level-5 chain (kanzi_tpu_torch.parallel.pipeline): the
    corpus through compress_l5_mesh and decompress_l5_mesh at 4 MiB
    blocks, the counters reset before and read after each; require the
@@ -129,21 +130,34 @@ Phases (each raises on failure, so any failure exits non-zero):
    container byte-identical with the host writer's, the mesh decode and
    the host reader to return the input, D and E launched for levels 2
    and 3 (E once, every full chunk of the file in one launch, and no
-   chunk coded on the host), G and H for level 6 (H once) with all 16
+   chunk coded on the host), K and the hinted parse once an LZ block
+   where the LZ transform's gate holds (level 3's LZX) and not where it
+   does not (level 2's LZ), G and H for level 6 (H once) with all 16
    blocks decoded on the card (l6_decode_device_blocks), I and J once
    each for level 7 with all 16 blocks decoded on the card
    (l7_decode_device_blocks) and none coded on the host
    (cm_host_blocks); both rates beside the host path's, medians of 3
    runs each in turns, and one torch.profiler / cProfile breakdown each
    of the level-2, 6 and 7 decodes and of the level-7 encode;
-9b. K's path: no container runs the LZ match pass (the port's LZX parse
-   is the native one), so the pass runs as a caller runs it,
-   ops.lz.lz_match_pass over 8 MiB of the corpus at 4 MiB blocks, at
-   hash_log 16 (LZ) and 19 (LZX), the counters reset just before and
-   read just after: lz_count, lz_scan and lz_scatter once a digit pass
-   (2 a pass at hash_log 16 and 19), lz_lcp and lz_match_pass once a
-   pass, each pass's prev and lcp equal to match_pass_plain's on the
-   card;
+9b. K's path: the pass as a caller runs it, ops.lz.lz_match_pass over 8
+   MiB of the corpus at 4 MiB blocks, at hash_log 16 (LZ) and 19 (LZX),
+   the counters reset just before and read just after: lz_count,
+   lz_scan and lz_scatter once a digit pass (2 a pass at hash_log 16 and
+   19), lz_lcp and lz_match_pass once a pass, each pass's prev and lcp
+   equal to match_pass_plain's on the card; then, once the plain
+   workers of phase 4 are read (they load the host's CPU, on which this
+   part's times are taken), the LZ transform's path: on each 4 MiB
+   block of the corpus's first 16 MiB at hash_log 16 and 19 K's pass
+   with its copies (lcp back as uint8, and as int32) and the native
+   parse that reads its hints (csrc/lzx_hint.cpp), its bytes equal to
+   the native parse's, each timed beside the native parse (host wall,
+   medians of 5); K's copies step by step; the level 1, 2 and 3 CLI
+   compress of the 16 MiB with the transform's gate open, closed and on
+   the host path in turns (medians of 3), the outputs equal and
+   lz_match_pass and lz_hinted_blocks once an LZ block with the gate
+   open; the gate's crossover (levels 1 and 3 at 256 KiB, 1 MiB and 4
+   MiB blocks, open and closed in turns, medians of 5); level 3 at -j
+   4, the gate closed, open, and open with a CUDA stream a thread;
 9c. the block mesh over more than one shard: parallel.dryrun's
    dryrun_multichip over the card named 2 and 3 times (3 shards cut
    some batches unevenly) and, on a machine with several cards, over
@@ -171,8 +185,9 @@ the lockstep binary decoders, ``chip_smoke.py --cm`` I and J alone.
 ``chip_smoke.py --containers``
 runs phases 1-3 and 5 only, no plain workers beside them, and no JSON:
 the container rates of two trees compared in one call.
-``chip_smoke.py --lz`` runs phases 1-3, phase 4's K, 9b and 9c: the
-quick check of the LZ match pass and the mesh. ``chip_smoke.py --lz
+``chip_smoke.py --lz`` runs phases 1-3, phase 4's K, 9b's pass and 9c:
+the quick check of the LZ match pass and the mesh. ``chip_smoke.py
+--hint`` runs phases 1-3 and 9b's LZ transform part alone. ``chip_smoke.py --lz
 TREE`` runs phases 1-3 and times K alone (its device part and the whole
 pass at one 4 MiB block, hash_log 16 and 19) with kanzi_tpu_torch
 imported from TREE, whichever design of K that tree has: run it parent,
@@ -320,7 +335,9 @@ SMALL_CM = (16, 4 << 10)            # I, J against their plain versions on the
 HOST_CM_BYTES = 32 << 10            # and on the CPU: each of the 16 main-path
                                     # streams' first bytes
 L5_CHAIN = (16, MiB)                # the fused chain: blocks, bytes
-LZ_BYTES = 8 * MiB                  # the opt-in LZ path's input
+LZ_BYTES = 8 * MiB                  # the LZ match pass's input as a caller
+LZ_HINT_BYTES = 16 * MiB            # the LZ transform's, the CLI's
+LZ_HINT_SIZES = (256 << 10, MiB, 4 * MiB)   # block sizes of the gate's sweep
 WORK = ROOT / "build" / "chip_smoke"
 
 
@@ -1639,6 +1656,8 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
     level-2, 6 and 7 decodes and of the level-7 encode."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
+    from kanzi_tpu_torch.transform import lz as lzt
+    dev = torch.device("cuda", 0)
     blocks = len(corpus) // BLOCK
     blobs = {}
     for name, cm, dm, chain, entropy, enc_path, dec_path in (
@@ -1676,6 +1695,17 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
                  "times")
         if enc.get("huff_host_chunks", 0) or dec.get("huff_host_chunks", 0):
             fail(f"the {name} mesh chain coded Huffman chunks on the host")
+        # l2's LZ and l3's LZX run the LZ transform, K where its gate holds
+        lz_hl = {"l2": 16, "l3": 19}.get(name)
+        if lz_hl and lzt._lz_on_device(dev, BLOCK, lz_hl):
+            if not (enc.get("lz_match_pass", 0)
+                    == enc.get("lz_hinted_blocks", -1) >= 1):
+                fail(f"the {name} mesh encode did not run K and the hinted "
+                     f"parse once an LZ block: {enc}")
+            for k in LZ_KERNELS:
+                launches[k] = launches.get(k, 0) + enc[k]
+        elif lz_hl and "lz_match_pass" in enc:
+            fail(f"the {name} mesh encode ran K with the gate closed")
         if name == "l6" and dec.get("l6_decode_device_blocks") != blocks:
             fail(f"the l6 mesh decode took {dec.get('l6_decode_device_blocks')}"
                  f" of the {blocks} blocks, each with an FPAQ payload, on "
@@ -2068,6 +2098,219 @@ def check_mesh(dev) -> None:
                 for (n, d, w), c in res["launches"].items()))
 
 
+def cli_seconds(argv) -> float:
+    """Host wall seconds of one in-process CLI call (app.cli.main), the
+    card idle at its end; fails on a non-zero exit."""
+    from kanzi_tpu_torch.app.cli import main as cli_main
+    t0 = time.perf_counter()
+    rc = cli_main(["-f", *map(str, argv)])
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"kanzi_tpu_torch {' '.join(map(str, argv))} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def thread_streams(lzt):
+    """The LZ transform's card step (transform/lz.py _hinted_forward)
+    wrapped to run on a CUDA stream of its thread's own, so that with -j
+    N one block's pass need not wait for another's copies: (the step,
+    the wrapped step)."""
+    import threading
+    local = threading.local()
+    step = lzt._hinted_forward
+
+    def on_own_stream(src, hash_log, min_match, dev):
+        if getattr(local, "stream", None) is None:
+            local.stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(local.stream):
+            return step(src, hash_log, min_match, dev)
+    return step, on_own_stream
+
+
+def check_lz_hinted(corpus, dlz, native, dev, launches) -> None:
+    """9b, the LZ transform on the card: K's pass (with its copies, lcp
+    brought back as uint8 and as int32) and the native parse that reads
+    its hints, against the native parse alone, on each 4 MiB block of the
+    corpus's first 16 MiB at hash_log 16 (LZ) and 19 (LZX), the bytes
+    equal (host wall times, medians of 5); K's copies step by step; the
+    level 1, 2 and 3 CLI compress of those 16 MiB with the gate open,
+    closed and on the host path (ops disabled) in turns, medians of 3,
+    the bytes equal and lz_match_pass once an LZ block; the gate's
+    crossover: levels 1 and 3 at 256 KiB, 1 and 4 MiB blocks, gate open
+    and closed in turns, medians of 5; level 3 at -j 4, gate closed,
+    open, and open on a stream a thread."""
+    import kanzi_tpu_torch.ops as ops
+    from kanzi_tpu_torch.ops.ans import _to_numpy
+    from kanzi_tpu_torch.transform import lz as lzt
+    data = np.frombuffer(corpus[:LZ_HINT_BYTES], np.uint8)
+    blocks = [data[i:i + BLOCK] for i in range(0, len(data), BLOCK)]
+    total = {16: [0.0, 0.0], 19: [0.0, 0.0]}
+    for b, blk in enumerate(blocks):
+        for hl in (16, 19):
+            ops.reset_counters()
+            prev, lcp = dlz.lz_match_pass(blk, hl, dev, lcp_dtype=np.uint8)
+            counts = dict(ops.COUNTERS)
+            if counts.get("lz_match_pass") != 1 or counts.get("lz_lcp") != 1:
+                fail(f"lz_match_pass launched {counts}")
+            st = {}
+            got = native.lzx_forward_hinted(blk, hl, 4, prev, lcp, stats=st)
+            want = native.lzx_forward(blk, hl, 4)
+            if (got is None) != (want is None) or (
+                    got is not None and got.tobytes() != want.tobytes()):
+                fail(f"the hinted parse differs from the native parse on "
+                     f"block {b} at hash_log {hl}")
+            t_pass = wall_ms(lambda: dlz.lz_match_pass(
+                blk, hl, dev, lcp_dtype=np.uint8))
+            t_pass32 = wall_ms(lambda: dlz.lz_match_pass(blk, hl, dev))
+            t_hint = wall_ms(lambda: native.lzx_forward_hinted(
+                blk, hl, 4, prev, lcp))
+            t_nat = wall_ms(lambda: native.lzx_forward(blk, hl, 4))
+            total[hl][0] += t_pass + t_hint
+            total[hl][1] += t_nat
+            log(f"LZ block {b} ({len(blk)} bytes), hash_log {hl}: K's pass with its "
+                f"copies {t_pass:.3f} ms (lcp as int32 {t_pass32:.3f}), the "
+                f"hinted parse {t_hint:.3f} ms, the native parse "
+                f"{t_nat:.3f} ms: {t_pass + t_hint:.3f} against "
+                f"{t_nat:.3f} ({t_nat / (t_pass + t_hint):.2f}x); bytes "
+                f"equal; parse counters "
+                + ", ".join(f"{k} {v}" for k, v in st.items() if v))
+    for hl, (h, n) in total.items():
+        log(f"LZ {len(data)} bytes at hash_log {hl}: K's pass + the hinted parse "
+            f"{h:.3f} ms against the native parse {n:.3f} ms "
+            f"({n / h:.2f}x; host wall, medians of 5 a block)")
+    # K's copies, one block: the pinned staging buffer's allocation, the
+    # bytes into it, pad_block whole; prev and lcp back as int32 or with
+    # lcp as uint8
+    blk = blocks[0]
+    staged = torch.empty(len(blk), dtype=torch.uint8, pin_memory=True)
+
+    def fill():
+        staged.numpy()[:] = blk
+    prev_d, lcp_d = dlz.match_pass_kernels(dlz.pad_block(blk, dev),
+                                           len(blk), 19)
+    t_alloc = wall_ms(lambda: torch.empty(len(blk), dtype=torch.uint8,
+                                          pin_memory=True))
+    t_fill = wall_ms(fill)
+    t_pad = wall_ms(lambda: dlz.pad_block(blk, dev))
+    t_back32 = wall_ms(lambda: _to_numpy(dev, prev_d, lcp_d))
+    t_back8 = wall_ms(lambda: _to_numpy(dev, prev_d, lcp_d.to(torch.uint8)))
+    log(f"K's copies, one block of {len(blk)} bytes (host wall, medians of 5): a pinned "
+        f"staging buffer's allocation {t_alloc:.3f} ms, the block into it "
+        f"{t_fill:.3f}, pad_block whole {t_pad:.3f}; prev and lcp back "
+        f"{t_back32:.3f} ms as int32, {t_back8:.3f} with lcp as uint8")
+
+    # the CLI on the 16 MiB: gate open, closed, host path, in turns
+    src = WORK / "lz_in.bin"
+    src.write_bytes(data.tobytes())
+    from kanzi_tpu_torch.app.cli import DEFAULT_BLOCK_SIZE
+    gate = lzt.LZ_HINT_MIN_BLOCK
+    n_blocks = -(-len(data) // DEFAULT_BLOCK_SIZE)
+
+    def compress(level, where, out, *flags):
+        lzt.LZ_HINT_MIN_BLOCK = dict.fromkeys(
+            gate, 0 if where == "open" else None)
+        if where == "host":
+            ops.disable()
+        try:
+            return cli_seconds(["-c", "-i", src, "-o", out, "-l", level,
+                                "-v", 0, *flags])
+        finally:
+            ops.enable()
+            lzt.LZ_HINT_MIN_BLOCK = gate
+
+    try:
+        for level in (1, 2, 3):
+            outs = {w: WORK / f"lz_l{level}_{w}.knz"
+                    for w in ("open", "closed", "host")}
+            secs = {w: [] for w in outs}
+            for i in range(4):
+                for where, out in outs.items():
+                    ops.reset_counters()
+                    t = compress(level, where, out)
+                    counts = dict(ops.COUNTERS)
+                    if i:
+                        secs[where].append(t)
+                    if where == "open" and i == 0:
+                        want = {"lz_match_pass": counts.get("lz_hinted_blocks")}
+                        if (counts.get("lz_match_pass", 0)
+                                != counts.get("lz_hinted_blocks", -1)
+                                or counts.get("lz_match_pass", 0) < 1
+                                or (level != 2 and counts["lz_match_pass"]
+                                    != n_blocks)):
+                            fail(f"level-{level} CLI with the gate open: "
+                                 f"{counts}, expected lz_match_pass once an "
+                                 f"LZ block, {want}")
+                        for k in LZ_KERNELS:
+                            launches[k] = launches.get(k, 0) + counts[k]
+                        log(f"level {level} CLI, gate open: launches "
+                            f"{counts}")
+                    elif where != "open" and "lz_match_pass" in counts:
+                        fail(f"level-{level} CLI ({where}) ran the pass")
+            ref = outs["host"].read_bytes()
+            for where, out in outs.items():
+                if out.read_bytes() != ref:
+                    fail(f"level-{level} CLI output ({where}) differs from "
+                         "the host path's")
+            med = {w: len(data) / MiB / statistics.median(t)
+                   for w, t in secs.items()}
+            log(f"level {level} CLI compress, {len(data)} bytes at 4 MiB "
+                f"blocks, "
+                f"medians of 3 in turns: gate open {med['open']:.1f} MiB/s, "
+                f"closed {med['closed']:.1f}, host path {med['host']:.1f} "
+                f"({med['open'] / med['closed']:.2f}x closed, "
+                f"{med['open'] / med['host']:.2f}x host); seconds "
+                + "; ".join(f"{w} " + ", ".join(f"{x:.4f}" for x in t)
+                            for w, t in secs.items()))
+        # the gate's crossover: levels 1 and 3 at three block sizes
+        for level in (1, 3):
+            for size in LZ_HINT_SIZES:
+                secs = {"open": [], "closed": []}
+                for i in range(6):
+                    for where in secs:
+                        t = compress(level, where,
+                                     WORK / f"lz_gate_{where}.knz", "-b",
+                                     size)
+                        if i:
+                            secs[where].append(t)
+                if (WORK / "lz_gate_open.knz").read_bytes() != (
+                        WORK / "lz_gate_closed.knz").read_bytes():
+                    fail(f"level {level} at -b {size}: the gate open and "
+                         "closed differ")
+                o, c = (statistics.median(secs[w]) for w in ("open",
+                                                             "closed"))
+                log(f"LZ gate, level {level} CLI compress at {size} byte "
+                    f"blocks ({len(data)} bytes, medians of 5 in turns): "
+                    f"gate open "
+                    f"{len(data) / MiB / o:.1f} MiB/s, closed "
+                    f"{len(data) / MiB / c:.1f} ({c / o:.2f}x)")
+        # -j 4: the writer's block threads call the pass at once
+        step, own = thread_streams(lzt)
+        runs = {"closed": ("closed", step), "open": ("open", step),
+                "open, a stream a thread": ("open", own)}
+        secs = {w: [] for w in runs}
+        for i in range(4):
+            for j, (where, (gate_at, fn)) in enumerate(runs.items()):
+                lzt._hinted_forward = fn
+                try:
+                    t = compress(3, gate_at, WORK / f"lz_j4_{j}.knz", "-j",
+                                 4)
+                finally:
+                    lzt._hinted_forward = step
+                if i:
+                    secs[where].append(t)
+        ref = (WORK / "lz_l3_host.knz").read_bytes()
+        for j, where in enumerate(runs):
+            if (WORK / f"lz_j4_{j}.knz").read_bytes() != ref:
+                fail(f"level 3 at -j 4 ({where}) differs from -j 1")
+        log(f"level 3 CLI compress at -j 4 ({len(data)} bytes, medians of 3 "
+            f"in turns): "
+            + ", ".join(f"{w} {len(data) / MiB / statistics.median(t):.1f} "
+                        f"MiB/s" for w, t in secs.items())
+            + "; bytes equal to -j 1's")
+    finally:
+        lzt.LZ_HINT_MIN_BLOCK = gate
+
+
 def report_kernels(kres: dict) -> None:
     """Print each kernel's line of phase 4; fail on any difference from
     its plain version."""
@@ -2144,7 +2387,6 @@ def run(workers: dict, mode: str) -> None:
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
-    from kanzi_tpu_torch.app.cli import main as cli_main
     from kanzi_tpu_torch.ops import _build
     from kanzi_tpu_torch.ops import ans as dans
     from kanzi_tpu_torch.ops import ans1 as dans1
@@ -2208,6 +2450,10 @@ def run(workers: dict, mode: str) -> None:
     from kanzi_tpu_torch.ops import lz as dlz
 
     # 4. kernels against their plain versions at the main path's shape
+    if mode == "hint":
+        WORK.mkdir(parents=True, exist_ok=True)
+        check_lz_hinted(corpus, dlz, native, dev, {})
+        return
     if mode == "lz":
         kres = check_lz_kernel(corpus, dlz, native, dev)
         report_kernels(kres)
@@ -2358,17 +2604,19 @@ def run(workers: dict, mode: str) -> None:
     src.write_bytes(data)
 
     def cli(*argv) -> float:
-        t0 = time.perf_counter()
-        rc = cli_main(["-f", *map(str, argv)])
-        torch.cuda.synchronize()
-        if rc != 0:
-            fail(f"kanzi_tpu_torch {' '.join(map(str, argv))} exited {rc}")
-        return time.perf_counter() - t0
+        return cli_seconds(argv)
 
+    # the default level's LZX runs K on the card where the transform's
+    # gate holds at the CLI's 4 MiB blocks
+    from kanzi_tpu_torch.app.cli import DEFAULT_BLOCK_SIZE
+    from kanzi_tpu_torch.transform import lz as lzt
+    l3_lz = (LZ_KERNELS if lzt._lz_on_device(dev, DEFAULT_BLOCK_SIZE, 19)
+             else ())
     for level, flags, path in (
             (5, ["-l", "5"], ("ans0_encode_scan", "ans0_compact",
                               "ans0_decode")),
-            (3, [], ("huff_code_tables", "huff_pack", "huff_decode")),
+            (3, [], ("huff_code_tables", "huff_pack", "huff_decode",
+                     *l3_lz)),
             (6, ["-l", "6", "-b", "256k"], ("fpaq_encode",))):
         mib = {}
         for where in ("card", "host"):
@@ -2391,7 +2639,7 @@ def run(workers: dict, mode: str) -> None:
                     if counts.get(k, 0) < 1:
                         fail(f"kernel {k} was not launched by the level-"
                              f"{level} CLI")
-                    launches[k] += counts[k]
+                    launches[k] = launches.get(k, 0) + counts[k]
                 if level == 3 and ("ans0_compact" in counts
                                    or "huff_host_chunks" in counts):
                     fail("the level-3 CLI launched the compaction B or "
@@ -2433,7 +2681,9 @@ def run(workers: dict, mode: str) -> None:
     # 9. the level-2, 3, 6 and 7 mesh chains
     check_mesh_chains(corpus, pp, launches, timed, rate)
 
-    # 9b. K's path: the LZ match pass as a caller runs it
+    # 9b. K's path: the LZ match pass as a caller runs it (the LZ
+    # transform's part follows the plain workers, whose load on the
+    # host's CPU would blur its host-bound times)
     check_lz_pass(corpus, dlz, dev, launches)
 
     # 9c. the block mesh over 2 and 3 shards of the card (and every card)
@@ -2442,6 +2692,10 @@ def run(workers: dict, mode: str) -> None:
     # F, G, H, I, J and SBRT against their plain versions on the host's
     # CPU
     finish_plain_workers(workers, full_got, kres)
+
+    # 9b, the LZ transform that runs K on the card and parses from its
+    # hints, with the host's CPU free
+    check_lz_hinted(corpus, dlz, native, dev, launches)
 
     # 10. no JAX, nothing of the JAX package
     foreign = sorted(m for m in sys.modules
@@ -2471,5 +2725,6 @@ if __name__ == "__main__":
         main("lz_time", Path(sys.argv[2]).resolve())
     else:
         main({"--kernels": "kernels", "--containers": "containers",
-              "--decoders": "decoders", "--cm": "cm", "--lz": "lz"}.get(
+              "--decoders": "decoders", "--cm": "cm", "--lz": "lz",
+              "--hint": "hint"}.get(
             sys.argv[1] if sys.argv[1:] else "", "full"))

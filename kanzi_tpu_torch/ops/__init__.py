@@ -17,8 +17,8 @@ Layout:
                one stream per block
 - ops.sbrt     SBRT (MTF / RANK / TIMESTAMP) rank automaton, one per block
 - ops.lz       LZ match pass: each position's previous occurrence in its
-               hash bucket and their common prefix (not wired into the
-               LZX parse, which stays native)
+               hash bucket and their common prefix, which the LZ
+               transform's native parse reads on a card
 - ops.bwt      suffix array, BWT forward and inverse (torch ops, no kernel)
 - ops._build   nvcc build + ctypes binding of csrc/*.cu
 """
@@ -62,7 +62,9 @@ def device() -> torch.device:
 # coder the full chunks it codes on the host beside the kernels
 # ("huff_host_chunks"), the level-7 mesh chain the CM blocks it leaves to
 # the host coder ("cm_host_blocks"), the LZ match pass each pass on the
-# card ("lz_match_pass", beside its four kernels' own counts).
+# card ("lz_match_pass", beside its four kernels' own counts), the LZ
+# transform the blocks it parses from the pass's hints
+# ("lz_hinted_blocks").
 # Tests and chip_smoke.py read them to show which path ran.
 COUNTERS = {}
 _COUNT_LOCK = _threading.Lock()

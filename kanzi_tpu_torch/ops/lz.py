@@ -5,11 +5,11 @@ prefix length with it, capped at CAP.
 The PyTorch counterpart of kanzi_tpu/ops/lz.py (its lz_match_pass,
 :108-117, is the contract). The LZX parse stays on the host, as in
 kanzi_tpu (its module docstring gives the analysis). kanzi_tpu hands the
-pass to a hinted stitch of the parse (opt-in, KANZI_TPU_LZ=1) that keeps
-every parse decision, so its output equals the native parse's; that
-stitch is a Python loop, ~100x slower than the native parse, so the
-port's parse (transform/lz.py) stays the native one and the pass is an
-entry point of its own until a native stitch reads its hints.
+pass to a hinted stitch of the parse (opt-in, KANZI_TPU_LZ=1, a Python
+loop) that keeps every parse decision, so its output equals the native
+parse's. The port's LZ transform (transform/lz.py) hands it, on a card,
+to a native parse that reads its hints (csrc/lzx_hint.cpp), with the
+same bytes.
 
 Kernel K (csrc/lz.cu): the hash, a stable least-significant-digit radix
 sort of the keys ``bucket << 32 | position`` on the bucket's hash_log
@@ -370,23 +370,30 @@ def match_pass_kernels(pad, n: int, hash_log: int):
     return keys, lz_lcp(pad, keys, n, check=False)
 
 
-def lz_match_pass(src: np.ndarray, hash_log: int, device):
+def lz_match_pass(src: np.ndarray, hash_log: int, device,
+                  lcp_dtype=np.int32):
     """The match pass over one block on ``device``. src [n] uint8.
-    Returns (prev [n] int32, lcp [n] int32 capped at CAP) as numpy:
+    Returns (prev [n] int32, lcp [n] lcp_dtype capped at CAP) as numpy:
     prev[i] the latest j < i whose window hashes to i's bucket (-1 if
     none), lcp[i] the common prefix of the padded block at i and at
     prev[i] (0 where prev is -1). On a card match_pass_kernels (counted
     as lz_match_pass); on the CPU match_pass_plain (lz_match_pass_plain).
-    kanzi_tpu.ops.lz.lz_match_pass's contract."""
+    kanzi_tpu.ops.lz.lz_match_pass's contract; lcp_dtype np.uint8 (the
+    LZ transform's, CAP fits a byte) brings lcp back from the card as a
+    quarter of the bytes."""
     dev = torch.device(device)
     src = np.asarray(src, np.uint8)
     n = len(src)
     digit_plan(hash_log)                  # raises outside [1, 31]
+    if lcp_dtype not in (np.int32, np.uint8):
+        raise ValueError(f"lcp_dtype {lcp_dtype}: np.int32 or np.uint8")
     if n == 0:
-        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        return np.zeros(0, np.int32), np.zeros(0, lcp_dtype)
     if _on_cpu("lz_match_pass", dev):
         prev, lcp = match_pass_plain(torch.from_numpy(src.copy()), hash_log)
-        return prev.numpy(), lcp.numpy()
+        return prev.numpy(), lcp.numpy().astype(lcp_dtype, copy=False)
     prev, lcp = match_pass_kernels(pad_block(src, dev), n, hash_log)
+    if lcp_dtype == np.uint8:
+        lcp = lcp.to(torch.uint8)
     _ops.count("lz_match_pass")
     return _to_numpy(dev, prev, lcp)

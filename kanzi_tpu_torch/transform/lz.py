@@ -15,7 +15,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+import kanzi_tpu_torch.ops as ops
 from kanzi_tpu_torch.core import stats
 from kanzi_tpu_torch.transform.base import ByteTransform, as_u8
 
@@ -27,6 +29,49 @@ MIN_MATCH6 = 6
 MAX_MATCH = 65535 + 254 + MIN_MATCH4
 MIN_BLOCK_LENGTH = 24
 M64 = (1 << 64) - 1
+
+
+# By hash_log (16: LZ, level 2; 19: LZX, levels 1 and 3), the bytes a
+# block from which its forward goes to the card: the match pass there
+# (kernel K) and the native parse that reads its hints, in place of the
+# native parse alone; None: never. Set by chip_smoke.py's CLI compress
+# on an H100 with the gate open and closed in turns (PERF.md): LZX wins
+# at 1 and 4 MiB blocks and loses at 256 KiB; LZ loses at 4 MiB, where
+# the native parse's table fits the host's L2.
+LZ_HINT_MIN_BLOCK = {16: None, 19: 1 << 20}
+
+
+def block_device(ctx) -> Optional[torch.device]:
+    """The device of the block: the context's "device", else the CUDA
+    device where there is one, else None (the host)."""
+    dev = ctx.get("device")
+    if dev is not None:
+        return torch.device(dev)
+    return ops.device() if torch.cuda.is_available() else None
+
+
+def _lz_on_device(dev, count: int, hash_log: int) -> bool:
+    """True where the block's match pass runs on ``dev`` and the parse
+    reads its hints: ops enabled, a CUDA device, a block of at least
+    LZ_HINT_MIN_BLOCK[hash_log] bytes."""
+    least = LZ_HINT_MIN_BLOCK.get(hash_log)
+    return (ops.ENABLED and dev is not None and dev.type == "cuda"
+            and least is not None and count >= least)
+
+
+def _hinted_forward(src: np.ndarray, hash_log: int, min_match: int, dev):
+    """The LZ match pass over src on dev, then the native parse from its
+    hints (native.lzx_forward_hinted): lzx_forward's bytes, or None. A
+    failed launch raises; there is no fallback to the native parse."""
+    from kanzi_tpu_torch.ops import lz as dlz
+    from kanzi_tpu_torch.utils import native
+    if not native.lzx_hint_available():
+        raise RuntimeError("LZ: the hinted parse (csrc/lzx_hint.cpp) did "
+                           "not build")
+    prev, lcp = dlz.lz_match_pass(src, hash_log, dev, lcp_dtype=np.uint8)
+    ops.count("lz_hinted_blocks")
+    return native.lzx_forward_hinted(src, hash_log, min_match, prev, lcp,
+                                     cap=dlz.CAP)
 
 
 def _emit_length(buf: bytearray, length: int) -> None:
@@ -89,10 +134,14 @@ class LZCodec(ByteTransform):
             return None
         min_match = mm
 
-        # native fast path (byte-identical C++ port, native/lzx.cpp). The
-        # device match pass (ops/lz.py, kernel K) is not wired in: its
-        # hinted stitch, the JAX package's opt-in KANZI_TPU_LZ path, is a
-        # Python loop that gives the same bytes ~100x slower than this
+        # on a card: the match pass (ops/lz.py, kernel K), then the parse
+        # that reads its hints (csrc/lzx_hint.cpp); the same bytes as the
+        # native parse below, which the host path and the CPU run
+        dev = block_device(self.ctx)
+        if _lz_on_device(dev, count, self.hash_log):
+            return _hinted_forward(src, self.hash_log, min_match, dev)
+
+        # native fast path (byte-identical C++ port, native/lzx.cpp)
         try:
             from kanzi_tpu_torch.utils import native
             if native.lzx_available():

@@ -7,8 +7,9 @@ under a name that carries a hash of its source, its headers and the
 build host's target (g++ -march=native resolves to the host's CPU), so a
 changed source builds a new library and a library built for another CPU
 is never loaded. It never loads the libraries kanzi_tpu builds next to
-the sources. The port's own host source, csrc/huff_parse.cpp, builds the
-same way. Falls back cleanly: callers must check `available()`.
+the sources. The port's own host sources, csrc/huff_parse.cpp and
+csrc/lzx_hint.cpp, build the same way. Falls back cleanly: callers must
+check `available()`.
 """
 
 from __future__ import annotations
@@ -250,6 +251,18 @@ def _load(name: str):
                     u8p, i64, u8p, i64, u8p, i64, u8p, i64, u8p, i64, i64,
                     i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, i32p, ctypes.POINTER(ctypes.c_uint32)]
+            elif name == "lzx_hint":
+                i64 = ctypes.c_int64
+                lib.kz_lzx_forward_hinted.restype = i64
+                lib.kz_lzx_forward_hinted.argtypes = [
+                    u8p, i64, ctypes.c_int, ctypes.c_int, i32p, u8p,
+                    ctypes.c_int, u8p, i64, ctypes.POINTER(i64),
+                    ctypes.c_int]
+                lib.kz_lzx_hint_stats.restype = ctypes.c_int
+                lib.kz_lzx_hint_stats.argtypes = []
+                if lib.kz_lzx_hint_stats() != len(LZX_HINT_STATS):
+                    raise RuntimeError("lzx_hint: its counters differ from "
+                                       "LZX_HINT_STATS")
             elif name == "huff_parse":
                 i64 = ctypes.c_int64
                 i64p = ctypes.POINTER(i64)
@@ -1251,6 +1264,49 @@ def lzx_forward(src: np.ndarray, hash_log: int, min_match: int):
     if n < 0:
         return None
     return dst[:n]
+
+
+# the counters of kz_lzx_forward_hinted (csrc/lzx_hint.cpp), in order
+LZX_HINT_STATS = ("checked", "table_miss", "lcp_miss", "dense_visits",
+                  "table_visits", "flushes", "flushed", "lcp_decided",
+                  "cap_resumed", "unmarked", "rep_matches",
+                  "marked_prev", "walks", "run_visits")
+
+
+def lzx_hint_available() -> bool:
+    return _load("lzx_hint") is not None
+
+
+def lzx_forward_hinted(src: np.ndarray, hash_log: int, min_match: int,
+                       prev: np.ndarray, lcp: np.ndarray, cap: int = 32,
+                       stats: dict = None, check: bool = False):
+    """The LZX forward (lzx_forward's bytes; None: skip) parsed from the
+    LZ match pass's hints (csrc/lzx_hint.cpp): prev [n] int32 and lcp [n]
+    (uint8, or any integers that fit it), capped at cap, of
+    ops.lz.lz_match_pass over src at hash_log. stats, a dict, receives
+    the parse's counters (LZX_HINT_STATS); check runs the native hash
+    table beside the hints and counts each difference ("table_miss",
+    "lcp_miss")."""
+    lib = _load("lzx_hint")
+    count = len(src)
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    prev = np.ascontiguousarray(prev, dtype=np.int32)
+    lcp = np.ascontiguousarray(lcp, dtype=np.uint8)
+    if prev.shape != (count,) or lcp.shape != (count,):
+        raise ValueError(f"prev and lcp: [{count}] each")
+    cap_out = (count + 16 if count <= 1024 else count + count // 64) + 2 + 16
+    dst = np.empty(cap_out, np.uint8)  # the parse writes every byte it returns
+    st = np.zeros(len(LZX_HINT_STATS), np.int64)
+    n = lib.kz_lzx_forward_hinted(
+        _u8ptr(src), count, hash_log, min_match,
+        prev.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _u8ptr(lcp),
+        cap, _u8ptr(dst), cap_out,
+        st.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), int(check))
+    if n == -2:
+        raise ValueError(f"hash_log {hash_log} or cap {cap} out of range")
+    if stats is not None:
+        stats.update(zip(LZX_HINT_STATS, st.tolist()))
+    return None if n < 0 else dst[:n]
 
 
 def concat_runs(buf0: np.ndarray, buf1: np.ndarray, sel: np.ndarray,

@@ -1,8 +1,9 @@
 """The LZ match pass of the PyTorch port (kanzi_tpu_torch.ops.lz, kernel
 K) against kanzi_tpu's (JAX on the CPU), its numpy model and its
-consumer, kanzi_tpu's hinted LZX stitch (KANZI_TPU_LZ=1), which the
-port's native parse equals: prev and lcp are exact, so every tolerance
-here is exact equality.
+consumers, kanzi_tpu's hinted LZX stitch (KANZI_TPU_LZ=1) and the port's
+LZ transform with its card gate opened, which the port's native parse
+equals: prev and lcp are exact, so every tolerance here is exact
+equality (tests/test_torch_lz_hinted.py holds the hinted parse itself).
 
 On the CPU the wrappers take their plain versions (the digit passes'
 count, scan and scatter, then lcp); the needs_cuda test holds each
@@ -18,6 +19,7 @@ import torch
 import kanzi_tpu_torch.ops as tops
 from kanzi_tpu_torch.core.context import Context
 from kanzi_tpu_torch.ops import lz as tlz
+from kanzi_tpu_torch.transform import lz as lzt
 from kanzi_tpu_torch.transform.lz import LZCodec
 
 pytestmark = pytest.mark.timeout(300)
@@ -280,21 +282,30 @@ def _jax_hinted_parse(data, extra, monkeypatch):
 
 @pytest.mark.parametrize("extra", [False, True])
 def test_parse_matches_jax_hinted_parse(extra, monkeypatch):
-    """The port's LZCodec (the native parse, with KANZI_TPU_LZ set or
-    not) == kanzi_tpu's LZCodec under KANZI_TPU_LZ=1 (its match pass on
-    JAX-CPU, then the hinted stitch), inverts, and runs no match pass:
-    the pass is not wired into the port's parse."""
+    """The port's LZCodec with the card's gate opened (its match pass, the
+    plain version on the CPU, then the native parse that reads its hints)
+    == the port's LZCodec with the gate closed (the native parse, with
+    KANZI_TPU_LZ set or not: the port has no such flag) == kanzi_tpu's
+    LZCodec under KANZI_TPU_LZ=1 (its match pass on JAX-CPU, then its
+    hinted stitch), and inverts; one pass and one hinted parse a block
+    with the gate open, none with it closed."""
     for name, data in _corpora().items():
         tops.reset_counters()
         native = _parse(data, extra, monkeypatch, False)
         flagged = _parse(data, extra, monkeypatch, True)
         assert tops.COUNTERS == {}, name
+        with monkeypatch.context() as m:
+            m.setattr(lzt, "_lz_on_device", lambda *a: True)
+            hinted = _parse(data, extra, monkeypatch, False)
+        assert tops.COUNTERS == {"lz_match_pass_plain": 1,
+                                 "lz_hinted_blocks": 1}, name
         theirs, passes = _jax_hinted_parse(data, extra, monkeypatch)
         assert passes == 1, name
         if native is None:
-            assert flagged is None and theirs is None, name
+            assert flagged is None and hinted is None and theirs is None, name
             continue
         assert flagged.tobytes() == native.tobytes(), name
+        assert hinted.tobytes() == native.tobytes(), name
         assert theirs.tobytes() == native.tobytes(), name
         back = LZCodec(Context({"size": len(data)}), extra=extra)
         assert back.inverse(native).tobytes() == data.tobytes(), name
