@@ -165,6 +165,30 @@ Phases (each raises on failure, so any failure exits non-zero):
    at k, each container byte-identical with the host writer's and
    decoded back, every kernel of a chain launched once a shard, the
    sharded ANS0 round trip and the MESH_SCALING line;
+9d. corrupt streams through the decode kernels (while the plain workers
+   run): kanzi_tpu_torch.testing.corrupt's corrupt_cases over 1088 KiB
+   of the corpus at 256 KiB blocks (payload bytes flipped past the
+   headers, ANS0 chunks and Huffman fragments cut short in the sinks
+   that feed C and E, FPAQ and CM payloads written 1-3 bytes short,
+   level-5 streams whose ZRLT bytes no input makes, one a zero run of
+   34 digits) and tests/test_torch_malformed.py's streams, through
+   the container's ANS0 and Huffman decodes and the l2, l3, l5, l6 and
+   l7 mesh decodes on the card: each outcome (a typed failure or bytes)
+   equal to its base path's (device cpu: the plain versions; or the host
+   path), no CUDA error, a good stream decoded on the card after each,
+   C, E, sbrt_inv, H and J launched;
+9e. the C API (after the plain workers): kanzi_tpu_torch/csrc/capi.cpp
+   and its script driver tests/test_torch_capi.c built from the
+   checkout; the driver, a C program, runs over 16 MiB of the corpus on
+   the card in a process of its own (NONE & ANS0, the level-3 chain &
+   HUFFMAN, NONE & ANS1 at 4 MiB blocks, NONE & FPAQ at 256 KiB; -j 1
+   and 4 for ANS0 and level 3, checksum 64 on one, headerless on one),
+   each file byte-identical with the host path's (the driver with
+   KANZI_TPU_DISABLE=1) and the in-process Python API's, each decode the
+   input, A-G and K launched in the C process (read through its
+   embedded interpreter, and counted as this path's launches); its
+   MiB/s each way for ANS0 and level 3 beside the Python API's and the
+   host path's, medians of 3 in turns, and its first call's seconds;
 10. require that neither jax nor kanzi_tpu was imported.
 
 The second-to-last line is a JSON object with each kernel's launches on
@@ -192,13 +216,15 @@ TREE`` runs phases 1-3 and times K alone (its device part and the whole
 pass at one 4 MiB block, hash_log 16 and 19) with kanzi_tpu_torch
 imported from TREE, whichever design of K that tree has: run it parent,
 change, change, parent in one call. ``chip_smoke.py --chains
-[TREE]`` runs phases 1-3 and times the level-2 and level-3 mesh chains
-alone, with kanzi_tpu_torch imported from TREE (default this checkout)
+[TREE]`` runs phases 1-3 and times the level-2, level-3 and level-5
+mesh chains alone, with kanzi_tpu_torch imported from TREE (default this checkout)
 and the corpus made from this checkout: two trees' chain rates compared
-on one corpus in one call.)
+on one corpus in one call. ``chip_smoke.py --corrupt`` runs phases 1-3
+and 9d alone, ``chip_smoke.py --capi`` phases 1-3 and 9e alone.)
 """
 
 import cProfile
+import io
 import json
 import pstats
 import re
@@ -347,6 +373,13 @@ def fail(msg: str):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    log(f"phase {phase} starts at {time.perf_counter() - T_START:.1f} s")
 
 
 def read_files(paths, cap: int) -> bytes:
@@ -1717,34 +1750,30 @@ def check_mesh_chains(corpus, pp, launches, timed, rate) -> None:
                  f"{dec.get('l7_decode_device_blocks')} of the {blocks} "
                  "blocks, each with a CM payload, on the card, or coded "
                  "CM blocks on the host")
-        ops.disable()
-        try:
-            host = kanzi_tpu_torch.compress_bytes(corpus, chain, entropy,
-                                                  block_size=BLOCK)
-            if kanzi_tpu_torch.decompress_bytes(blob) != corpus:
-                fail(f"the host reader does not decode the {name} mesh "
-                     "chain's container")
-        finally:
-            ops.enable()
-        if blob != host:
-            fail(f"the {name} mesh chain's container differs from the host "
-                 "writer's")
         # both rates beside the host path's: medians of 3 runs each, in
-        # turns
+        # turns; the host path's first run is also the check that the
+        # container is the host writer's and that the host reader decodes
+        # the chain's
         secs = {k: [] for k in ("card enc", "host enc", "card dec",
                                 "host dec")}
-        for _ in range(3):
+        for r in range(3):
             secs["card enc"].append(timed(cm, corpus, BLOCK)[1])
             secs["card dec"].append(timed(dm, blob)[1])
             ops.disable()
             try:
-                secs["host enc"].append(timed(
-                    kanzi_tpu_torch.compress_bytes, corpus, chain, entropy,
-                    block_size=BLOCK)[1])
-                secs["host dec"].append(timed(
-                    kanzi_tpu_torch.decompress_bytes, blob)[1])
+                host, t_enc = timed(kanzi_tpu_torch.compress_bytes, corpus,
+                                    chain, entropy, block_size=BLOCK)
+                back, t_dec = timed(kanzi_tpu_torch.decompress_bytes, blob)
             finally:
                 ops.enable()
+            if r == 0 and back != corpus:
+                fail(f"the host reader does not decode the {name} mesh "
+                     "chain's container")
+            if r == 0 and blob != host:
+                fail(f"the {name} mesh chain's container differs from the "
+                     "host writer's")
+            secs["host enc"].append(t_enc)
+            secs["host dec"].append(t_dec)
         med = {k: statistics.median(v) for k, v in secs.items()}
         log(f"{name} mesh chain, medians of 3 runs each in turns: encode "
             f"{rate(med['card enc'])} (host path {rate(med['host enc'])}, "
@@ -2339,12 +2368,12 @@ def report_kernels(kres: dict) -> None:
 
 
 def time_chains(corpus, pp, timed, rate) -> None:
-    """--chains: the level-2 and level-3 mesh chains on the corpus at 4
-    MiB blocks, compress then decompress, 3 runs after an untimed one,
+    """--chains: the level-2, level-3 and level-5 mesh chains on the
+    corpus at 4 MiB blocks, compress then decompress, 3 runs after an untimed one,
     each decode equal to the corpus; the medians and every run."""
     import kanzi_tpu_torch
     log(f"kanzi_tpu_torch from {Path(kanzi_tpu_torch.__file__).parent}")
-    for name in ("l2", "l3"):
+    for name in ("l2", "l3", "l5"):
         cm = getattr(pp, f"compress_{name}_mesh")
         dm = getattr(pp, f"decompress_{name}_mesh")
         secs = {"encode": [], "decode": []}
@@ -2361,6 +2390,263 @@ def time_chains(corpus, pp, timed, rate) -> None:
             f"({statistics.median(t):.4f} s; runs "
             f"{', '.join(f'{x:.4f}' for x in t)})"
             for way, t in secs.items()))
+
+
+# ---------------------------------------------------------------------
+# The C API (kanzi_tpu_torch/csrc/capi.cpp) from a C program
+# ---------------------------------------------------------------------
+
+CAPI_BYTES = 16 * MiB
+L3_CHAIN = "TEXT+UTF+PACK+MM+LZX"
+# (transform, entropy, block, jobs, checksum, headerless, the kernels its
+# encode and decode launch in the C process)
+CAPI_RUNS = (
+    ("NONE", "ANS0", BLOCK, 1, 0, 0,
+     ("ans0_encode_scan", "ans0_compact", "ans0_decode")),
+    ("NONE", "ANS0", BLOCK, 4, 0, 0,
+     ("ans0_encode_scan", "ans0_compact")),
+    (L3_CHAIN, "HUFFMAN", BLOCK, 1, 64, 0,
+     ("huff_code_tables", "huff_pack", "huff_decode", *LZ_KERNELS)),
+    (L3_CHAIN, "HUFFMAN", BLOCK, 4, 0, 0,
+     ("huff_code_tables", "huff_pack", "huff_decode")),
+    ("NONE", "ANS1", BLOCK, 1, 0, 0, ("ans1_gather", "ans1_chain")),
+    ("NONE", "FPAQ", 256 << 10, 1, 0, 0, ("fpaq_encode",)),
+    ("NONE", "ANS0", BLOCK, 1, 0, 1,
+     ("ans0_encode_scan", "ans0_compact", "ans0_decode")),
+)
+# the timed runs: ANS0 and the level-3 chain, -j 1, no checksum
+CAPI_TIMED = ((("NONE", "ANS0"), "ANS0"), ((L3_CHAIN, "HUFFMAN"), "level 3"))
+CAPI_ROUNDS = 3
+
+
+def capi_script(work: Path, src: Path, runs, tag: str) -> list:
+    """The driver's lines for runs (CAPI_RUNS' first six fields), each
+    compressed then decompressed, the counters printed after each
+    command; the outputs under work, named by tag and run. A compress of
+    the input's first MiB with each transform and entropy of runs comes
+    first (capi_warm of them): the process's first call starts the
+    interpreter, torch and the CUDA context, and each loads its native
+    host libraries."""
+    lines = []
+    for t, e in capi_warm(runs):
+        lines += [f"c {work / 'warm.bin'} {work / (tag + 'warm.knz')} {t} "
+                  f"{e} {MiB} 1 0 0", "p kanzi_tpu_torch.ops"]
+    for i, (t, e, bs, jobs, ck, hl, *_) in enumerate(runs):
+        knz, out = work / f"{tag}{i}.knz", work / f"{tag}{i}.out"
+        lines.append(f"c {src} {knz} {t} {e} {bs} {jobs} {ck} {hl}")
+        lines.append("p kanzi_tpu_torch.ops")
+        if hl:
+            lines.append(f"d {knz} {out} {jobs} 1 {t} {e} {bs} "
+                         f"{src.stat().st_size} {ck}")
+        else:
+            lines.append(f"d {knz} {out} {jobs} 0")
+        lines.append("p kanzi_tpu_torch.ops")
+    return lines
+
+
+def capi_warm(runs) -> list:
+    return sorted({(r[0], r[1]) for r in runs})
+
+
+def run_driver(exe: Path, work: Path, lines: list, host: bool,
+               name: str) -> list:
+    """The driver over lines in a process of its own (the host path with
+    KANZI_TPU_DISABLE=1); returns its result lines, split."""
+    import os
+    script = work / f"{name}.txt"
+    script.write_text("\n".join(lines) + "\n")
+    env = dict(os.environ)
+    env.pop("KANZI_TPU_DISABLE", None)
+    env.pop("PYTHONPATH", None)
+    if host:
+        env["KANZI_TPU_DISABLE"] = "1"
+    r = subprocess.run([str(exe), str(script)], env=env, capture_output=True,
+                       text=True, timeout=900)
+    out = [ln.split(" ", 1) if ln.startswith("p ") else ln.split()
+           for ln in r.stdout.splitlines()
+           if ln[:2] in ("c ", "d ", "p ") or ln == "t"]
+    if r.returncode != 0 or len(out) != len(lines):
+        fail(f"the C driver ({name}) exited {r.returncode}: "
+             f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    return out
+
+
+def capi_launches(out: list) -> list:
+    """Each c/d line of a driver's output with the launches it made (the
+    counters printed after it, less those before), and its return code
+    and seconds."""
+    res, before = [], {}
+    for i in range(0, len(out), 2):
+        cmd, counts = out[i], json.loads(out[i + 1][1])
+        res.append((cmd, {k: v - before.get(k, 0) for k, v in counts.items()
+                          if v != before.get(k, 0)}))
+        before = counts
+    return res
+
+
+def check_capi(corpus: bytes, k, native, launches: dict) -> None:
+    """Phase 9e: the port's C API library and tests/test_torch_capi.c
+    built from the checkout; the driver, a C program that links them,
+    runs CAPI_RUNS over 16 MiB of the corpus on the card in a process of
+    its own, each run's counters read through its embedded interpreter:
+    every kernel of the run launched in the C process (added to
+    launches, this path's count); each output file
+    byte-identical with the host path's (the same driver with
+    KANZI_TPU_DISABLE=1) and with the Python API's in this process
+    (CompressedWriter, the same settings), each decode the input. Then
+    the C API's MiB/s each way for ANS0 and level 3, medians of
+    CAPI_ROUNDS runs, the card's path and the host path in turns in one C
+    process, beside the Python API's in this process; and the first
+    call's seconds (the driver's first compress: the interpreter, torch,
+    the CUDA context)."""
+    work = WORK / "capi"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    so = native.capi_library()
+    exe = work / "test_torch_capi"
+    subprocess.run(["gcc", "-O2", str(ROOT / "tests" / "test_torch_capi.c"),
+                    *native.capi_link_flags(so), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=300)
+    log(f"C API: {Path(so).name} and its driver built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data = corpus[:CAPI_BYTES]
+    src = work / "in.bin"
+    src.write_bytes(data)
+    (work / "warm.bin").write_bytes(data[:MiB])
+    runs = [r[:6] for r in CAPI_RUNS]
+    card = capi_launches(run_driver(exe, work,
+                                    capi_script(work, src, runs, "card"),
+                                    False, "card"))
+    host = capi_launches(run_driver(exe, work,
+                                    capi_script(work, src, runs, "host"),
+                                    True, "host"))
+    first = float(card[0][0][4])
+    card, host = card[len(capi_warm(runs)):], host[len(capi_warm(runs)):]
+    for i, run in enumerate(CAPI_RUNS):
+        t, e, bs, jobs, ck, hl, kernels = run
+        (c, c_n), (d, d_n) = card[2 * i], card[2 * i + 1]
+        (hc, h_n), (hd, hd_n) = host[2 * i], host[2 * i + 1]
+        label = f"{t}/{e} {bs >> 10} KiB -j {jobs} -x {ck} headerless {hl}"
+        if c[1] != "0" or d[1] != "0" or hc[1] != "0" or hd[1] != "0":
+            fail(f"C API {label}: return codes {c[1]} {d[1]} on the card, "
+                 f"{hc[1]} {hd[1]} on the host path")
+        blob = (work / f"card{i}.knz").read_bytes()
+        if blob != (work / f"host{i}.knz").read_bytes():
+            fail(f"C API {label}: the card's file differs from the host "
+                 "path's")
+        sink = io.BytesIO()
+        w = k.CompressedWriter(sink, transform=t, entropy=e, block_size=bs,
+                               checksum_bits=ck, headerless=bool(hl),
+                               jobs=jobs)
+        for pos in range(0, len(data), bs):
+            w.write(data[pos:pos + bs])
+        w.close()
+        if blob != sink.getvalue():
+            fail(f"C API {label}: the file differs from the Python API's")
+        if ((work / f"card{i}.out").read_bytes() != data
+                or (work / f"host{i}.out").read_bytes() != data):
+            fail(f"C API {label}: a decode differs from the input")
+        got = {**c_n, **{x: c_n.get(x, 0) + v for x, v in d_n.items()}}
+        missing = [x for x in kernels if got.get(x, 0) < 1]
+        for x, v in got.items():
+            if x in REPLACES:
+                launches[x] = launches.get(x, 0) + v
+        if missing or h_n or hd_n:
+            fail(f"C API {label}: kernels {missing} not launched in the C "
+                 f"process, or the host path launched {h_n} {hd_n}")
+        log(f"C API {label}: {len(data)} -> {len(blob)} bytes, == host "
+            f"path == Python API, decodes to the input; launches in the C "
+            f"process: compress {c_n}, decompress {d_n}")
+    log(f"C API first call (a C process's first initCompressor, compress "
+        f"and disposeCompressor, 1 MiB {' '.join(capi_warm(runs)[0])}: the "
+        f"interpreter, torch, the CUDA context, the first batch): "
+        f"{first:.3f} s")
+    # rates: one C process runs the card's path and the host path in
+    # turns (kanzi_tpu_torch.ops disabled and enabled again through its
+    # interpreter), each timed run once on each path first (the first of
+    # a size pays its pinned buffers, the kernels' first launches); then
+    # the Python API in this process
+    timed = [(*te, BLOCK, 1, 0, 0) for te, _ in CAPI_TIMED]
+    lines = capi_script(work, src, timed, "t")
+    order = []
+    for r in range(-1, CAPI_ROUNDS):
+        for where in ("card", "host"):
+            lines.append(f"t kanzi_tpu_torch.ops "
+                         f"{'enable' if where == 'card' else 'disable'}")
+            for i, (t, e, bs, *_) in enumerate(timed):
+                knz, out = work / f"t{i}.knz", work / f"t{i}.out"
+                lines += [f"c {src} {knz} {t} {e} {bs} 1 0 0",
+                          f"d {knz} {out} 1 0"]
+                order.append((r, where, (t, e)))
+    cd = [o for o in run_driver(exe, work, lines, False, "timed")
+          if o[0] in ("c", "d")][-2 * len(order):]
+    secs = {}
+    for (r, where, te), c, d in zip(order, cd[0::2], cd[1::2]):
+        if c[1] != "0" or d[1] != "0" or int(d[2]) != len(data):
+            fail(f"C API timed run {te} on the {where} path failed: {c} {d}")
+        if r >= 0:
+            secs.setdefault((where, te, "compress"), []).append(float(c[4]))
+            secs.setdefault((where, te, "decompress"), []).append(float(d[3]))
+    for _ in range(CAPI_ROUNDS):
+        for run in timed:
+            t, e, bs = run[:3]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sink = io.BytesIO()
+            w = k.CompressedWriter(sink, transform=t, entropy=e,
+                                   block_size=bs)
+            for pos in range(0, len(data), bs):
+                w.write(data[pos:pos + bs])
+            w.close()
+            t1 = time.perf_counter()
+            back = b"".join(k.CompressedReader(sink.getvalue()).read_blocks())
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if back != data:
+                fail(f"Python API {t}/{e} round trip differs")
+            secs.setdefault(("python", run[:2], "compress"), []).append(t1 - t0)
+            secs.setdefault(("python", run[:2], "decompress"), []).append(t2 - t1)
+    for te, name in CAPI_TIMED:
+        for way in ("compress", "decompress"):
+            rate = {w: len(data) / MiB / statistics.median(secs[(w, te, way)])
+                    for w in ("card", "python", "host")}
+            log(f"C API {name} {way}, 16 MiB at 4 MiB blocks, medians of "
+                f"{CAPI_ROUNDS}: the C process on the card "
+                f"{rate['card']:.1f} MiB/s and on the host path "
+                f"{rate['host']:.1f} (in turns), the Python API on the card "
+                f"in this process {rate['python']:.1f}; seconds "
+                + ", ".join(f"{w} {[round(x, 6) for x in secs[(w, te, way)]]}"
+                            for w in ("card", "host", "python")))
+
+
+CORRUPT_BLOCK = 256 << 10
+
+
+def check_corrupt_phase(corpus: bytes, dev) -> None:
+    """Phase 9d: kanzi_tpu_torch.testing.corrupt's corrupt_cases over
+    1088 KiB of the corpus (code, words, random bytes, runs) at 256 KiB
+    blocks, two random blocks before the tail (the l5 mesh decode's
+    device rows: RANK through sbrt_inv), and test_torch_malformed.py's
+    streams, through the decode kernels on the card (check_corrupt);
+    every one of CORRUPT_KERNELS launched."""
+    from kanzi_tpu_torch.testing import corrupt
+    data = (corpus[:256 << 10] + corpus[6 * MiB:6 * MiB + (256 << 10)]
+            + corpus[8 * MiB:8 * MiB + (512 << 10)]
+            + corpus[14 * MiB:14 * MiB + (64 << 10)])
+    t0 = time.perf_counter()
+    cases, good = corrupt.corrupt_cases(data, CORRUPT_BLOCK, (dev,))
+    try:
+        launches, outcomes = corrupt.check_corrupt(cases, good, dev)
+    except AssertionError as e:
+        fail(str(e))
+    log(f"corrupt streams: {len(cases)} on {dev}, {outcomes['err']} typed "
+        f"failures and {outcomes['ok']} decodes equal to their base path's, "
+        f"a good stream decoded after each; decode launches "
+        f"{ {key: v for key, v in sorted(launches.items())} }")
+    missing = [x for x in corrupt.CORRUPT_KERNELS if launches.get(x, 0) < 1]
+    if missing:
+        fail(f"corrupt streams: kernels {missing} never launched")
+    log(f"corrupt streams phase: {time.perf_counter() - t0:.1f} s")
 
 
 def main(mode: str, tree: Path = ROOT) -> None:
@@ -2383,7 +2669,7 @@ def run(workers: dict, mode: str) -> None:
     ("kernels"), for H-J only ("decoders"), for I and J only ("cm"); 1-3
     and 5 ("containers"); 1-3, phase 4's K, 9b and 9c ("lz"); 1-3 and
     the l2 and l3 mesh chains' times ("chains"); 1-3 and K's times
-    ("lz_time")."""
+    ("lz_time"); 1-3 and 9d ("corrupt"); 1-3 and 9e ("capi")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -2454,6 +2740,12 @@ def run(workers: dict, mode: str) -> None:
         WORK.mkdir(parents=True, exist_ok=True)
         check_lz_hinted(corpus, dlz, native, dev, {})
         return
+    if mode == "corrupt":
+        check_corrupt_phase(corpus, dev)
+        return
+    if mode == "capi":
+        check_capi(corpus, kanzi_tpu_torch, native, {})
+        return
     if mode == "lz":
         kres = check_lz_kernel(corpus, dlz, native, dev)
         report_kernels(kres)
@@ -2503,6 +2795,7 @@ def run(workers: dict, mode: str) -> None:
 
     # 5. the main paths on the card. An untimed pass over one block of
     # each first builds the native host libraries (g++, at first use).
+    stamp("5")
     for entropy in ("ANS0", "HUFFMAN", "ANS1", "FPAQ"):
         warm = kanzi_tpu_torch.compress_bytes(corpus[:BLOCK], "NONE",
                                               entropy, block_size=BLOCK)
@@ -2585,6 +2878,7 @@ def run(workers: dict, mode: str) -> None:
 
     # 6. every level through the port (this also builds every native
     # host library before the CLI's timed runs)
+    stamp("6")
     data = corpus[:MiB]
     for level in range(10):
         t0 = time.perf_counter()
@@ -2597,6 +2891,7 @@ def run(workers: dict, mode: str) -> None:
 
     # 7. levels 5, 3 (the default) and 6 (FPAQ on the card) through the
     # CLI's entry point
+    stamp("7")
     log(f"native SA-IS available: {native.sais_available()}")
     work = WORK
     data = corpus[:16 * MiB]
@@ -2676,9 +2971,11 @@ def run(workers: dict, mode: str) -> None:
                 f"{med['host']:.1f} MiB/s ({med['card'] / med['host']:.2f}x)")
 
     # 8. the device level-5 chain, and the fused chain
+    stamp("8")
     check_l5_chain(corpus, pp, dbwt, native, launches, timed, rate)
 
     # 9. the level-2, 3, 6 and 7 mesh chains
+    stamp("9")
     check_mesh_chains(corpus, pp, launches, timed, rate)
 
     # 9b. K's path: the LZ match pass as a caller runs it (the LZ
@@ -2687,17 +2984,31 @@ def run(workers: dict, mode: str) -> None:
     check_lz_pass(corpus, dlz, dev, launches)
 
     # 9c. the block mesh over 2 and 3 shards of the card (and every card)
+    stamp("9c")
     check_mesh(dev)
+
+    # 9d. corrupt streams through the decode kernels on the card (no
+    # times: it runs while the plain workers load the host's CPU)
+    stamp("9d")
+    check_corrupt_phase(corpus, dev)
 
     # F, G, H, I, J and SBRT against their plain versions on the host's
     # CPU
+    stamp("of the plain workers' wait")
     finish_plain_workers(workers, full_got, kres)
+
+    # 9e. the C API from a C program on the card, with the host's CPU
+    # free for its rates
+    stamp("9e")
+    check_capi(corpus, kanzi_tpu_torch, native, launches)
 
     # 9b, the LZ transform that runs K on the card and parses from its
     # hints, with the host's CPU free
+    stamp("9b's LZ transform")
     check_lz_hinted(corpus, dlz, native, dev, launches)
 
     # 10. no JAX, nothing of the JAX package
+    stamp("10")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))
     if foreign:
@@ -2726,5 +3037,6 @@ if __name__ == "__main__":
     else:
         main({"--kernels": "kernels", "--containers": "containers",
               "--decoders": "decoders", "--cm": "cm", "--lz": "lz",
-              "--hint": "hint"}.get(
+              "--hint": "hint", "--corrupt": "corrupt",
+              "--capi": "capi"}.get(
             sys.argv[1] if sys.argv[1:] else "", "full"))

@@ -950,15 +950,27 @@ class CompressedReader:
                 return out[start:min(start + bs, total)]
 
             pos = 0
+            # a corrupt stream's block may decode to other than
+            # block_size bytes: the blocks after it no longer sit at
+            # their fixed offsets, so from there on each is copied out
+            # as it comes (never a byte of out that no block wrote)
+            parts = None
             gen = self.read_blocks_np(from_block, to_block,
                                       out_view_fn=view)
-            for data in gen:
+            for k, data in enumerate(gen):
+                if parts is None and (pos != k * bs or data.size > bs):
+                    parts = [np.array(out[:pos])]
+                if parts is not None:
+                    parts.append(np.array(data))
+                    continue
                 if pos + data.size > total:      # lying header: fall back
                     rest = [np.array(out[:pos]), data] + list(gen)
                     return np.concatenate(rest).tobytes()
                 if data.base is not out:         # not decoded in place
                     out[pos:pos + data.size] = data
                 pos += data.size
+            if parts is not None:
+                return np.concatenate(parts).tobytes()
             if pos == total and result is not None:
                 return result
             return out[:pos].tobytes()

@@ -116,9 +116,21 @@ def bwt_output(s: torch.Tensor, bwt_sorted: torch.Tensor,
     return torch.where(j <= rank0[:, None], shifted, bwt_sorted)
 
 
-def _bwt_inverse_core(src: torch.Tensor, p_idx: torch.Tensor):
+def _bwt_inverse_core(src: torch.Tensor, p_idx: torch.Tensor,
+                      starts: torch.Tensor | None = None):
     """src [B, n] uint8 BWT bytes; p_idx [B] int64 primary index
-    (1-based, 0 < p_idx <= n). Returns the inverse [B, n] uint8."""
+    (1-based, 0 < p_idx <= n). Returns (the inverse [B, n] uint8, ok [B]
+    bool), with no host sync.
+
+    The host's walk (native/sais.cpp kz_bwt_inverse) follows the links
+    from the primary index n steps; a BWT of some input has links that
+    form one cycle through it, and then this is that walk. Corrupt bytes
+    can make several cycles, which the walk repeats and this formulation
+    cannot place: ok is False for such a row, whose output is undefined
+    (no index leaves it). With starts [B, k] (1-based, the primary
+    indexes from which the host walks its k lanes, lane t from position
+    t * ceil(n / k)), ok is False too where a lane's index does not sit
+    at its lane's start in the walk, whose output would differ."""
     b, n = src.shape
     dev = src.device
     inf = 1 << 40
@@ -136,7 +148,14 @@ def _bwt_inverse_core(src: torch.Tensor, p_idx: torch.Tensor):
         jump = jump.gather(1, jump)
         d = torch.where(d != inf, d,
                         torch.where(d_at != inf, d_at + (1 << k), inf))
-    return torch.empty_like(src).scatter_(1, n - d, vals)
+    ok = (d <= n).all(1)
+    if starts is not None:
+        k = starts.shape[1]
+        step = -(-n // k)
+        at = (n - d.gather(1, starts - 1)) % n        # each lane's position
+        ok &= (at == torch.arange(k, device=dev) * step).all(1)
+    pos = torch.where(ok[:, None], n - d, idx)
+    return torch.empty_like(src).scatter_(1, pos, vals), ok
 
 
 def suffix_array(block: np.ndarray, device) -> np.ndarray:
@@ -162,6 +181,11 @@ def bwt_inverse(bwt: np.ndarray, p_idx: int, device) -> np.ndarray:
     """Inverse BWT of one block on ``device``, numpy in and out. Only the
     first primary index is needed (the others let a sequential host
     decode its chunks in parallel)."""
+    if not 0 < p_idx <= len(bwt):
+        raise ValueError("BWT: invalid primary index")
     src = _host_tensor(bwt, np.uint8).to(device)[None]
     p = torch.tensor([p_idx], dtype=torch.int64, device=src.device)
-    return _bwt_inverse_core(src, p)[0].cpu().numpy()
+    out, ok = _bwt_inverse_core(src, p)
+    if not bool(ok[0]):
+        raise ValueError("BWT: corrupt block (its links are not one cycle)")
+    return out[0].cpu().numpy()

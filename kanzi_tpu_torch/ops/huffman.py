@@ -489,7 +489,14 @@ def decode_table(codes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     sym | len<<8 (HuffmanDecoder.cpp buildDecodingTable). A prefix past
     the last code keeps the entry before it, one before the first code
     reads 0, as kanzi_tpu.ops.huffman._build_vt does. codes [C, 256] are
-    the canonical code values, sizes [C, 256] their lengths (0: absent)."""
+    the canonical code values, sizes [C, 256] their lengths (0: absent).
+
+    The parse does not check that the lengths fit a prefix code, so a
+    corrupt chunk's canonical codes can run past their lengths: a code
+    whose prefix falls past the table is dropped (as kanzi_tpu's scatter
+    drops it), and of codes that share a prefix the longest, then the
+    highest symbol, takes it, on every device alike (a plain scatter
+    lets a card pick any)."""
     c, dev = codes.shape[0], codes.device
     ln = sizes.long()
     present = ln > 0
@@ -497,8 +504,9 @@ def decode_table(codes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
                         << (MAX_SYMBOL_SIZE - ln).clamp(min=0), TABLE)
     syms = torch.arange(256, device=dev)[None, :]
     entry = (start << 16) | (ln << 8) | syms
-    vt = torch.zeros((c, TABLE + 1), dtype=torch.int64, device=dev).scatter_(
-        1, start, torch.where(present, entry, 0))
+    vt = torch.zeros((c, TABLE + 1), dtype=torch.int64,
+                     device=dev).scatter_reduce_(
+        1, start.clamp(max=TABLE), torch.where(present, entry, 0), "amax")
     return (vt[:, :TABLE].cummax(1).values & 0xFFFF).to(torch.int16)
 
 

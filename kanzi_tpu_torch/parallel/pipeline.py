@@ -251,18 +251,24 @@ def _bwt_codec(blocks: torch.Tensor) -> torch.Tensor:
     return torch.cat([mode, idx, out], 1)
 
 
-def _bwt_inverse(payload: torch.Tensor, n: int, pis: int) -> torch.Tensor:
+def _bwt_inverse(payload: torch.Tensor, n: int, pis: int) -> tuple:
     """BWTBlockCodec inverse of [B, 1 + 8 * pis + n] uint8 rows: the
-    first primary index from the header, then the inverse BWT."""
-    p_idx = torch.zeros(payload.shape[0], dtype=torch.int64,
-                        device=payload.device)
-    for k in range(pis):
-        p_idx = p_idx << 8 | payload[:, 1 + k].long()
-    p_idx = p_idx + 1                            # stored value - 1
-    if not bool(((p_idx >= 1) & (p_idx <= n)).all()):
-        raise ValueError("BWT: invalid primary index")
+    primary indexes from the header, then the inverse BWT. Returns (the
+    inverse [B, n] uint8, ok [B] bool), with no host sync: ok is False
+    where a row's header is not the one _bwt_codec writes or its bytes
+    are no block's BWT (a corrupt stream), rows whose output is undefined
+    and whose host inverse this one would not equal."""
+    b = payload.shape[0]
+    mode = (3 << 2) | (pis - 1)                  # 8 indexes of pis bytes
+    idx = payload[:, 1:1 + 8 * pis].long().view(b, 8, pis)
+    sh = 8 * torch.arange(pis - 1, -1, -1, device=payload.device)
+    p_idx = (idx << sh).sum(2) + 1               # stored value - 1
+    hdr_ok = (payload[:, 0] == mode) & ((p_idx >= 1) & (p_idx <= n)).all(1)
+    p_idx = torch.where(hdr_ok[:, None], p_idx, 1)   # in the row either way
     hdr = 1 + 8 * pis
-    return dbwt._bwt_inverse_core(payload[:, hdr:hdr + n].contiguous(), p_idx)
+    out, ok = dbwt._bwt_inverse_core(payload[:, hdr:hdr + n].contiguous(),
+                                     p_idx[:, 0], p_idx)
+    return out, ok & hdr_ok
 
 
 def _device_l5(blocks: torch.Tensor, zcap: int):
@@ -276,10 +282,12 @@ def _device_l5(blocks: torch.Tensor, zcap: int):
 
 def _device_l5_inv(zin: torch.Tensor, zlen: torch.Tensor,
                    zran: torch.Tensor, rank_len: int, n: int,
-                   pis: int) -> torch.Tensor:
+                   pis: int) -> tuple:
     """ZRLT^-1 (on the rows where it ran) -> RANK^-1 -> BWT^-1 of B rows
     [B, >= rank_len] uint8 on their device, row b's first zlen[b] bytes
-    real and zeros after them. Returns [B, n] uint8."""
+    real and zeros after them. Returns ([B, n] uint8, ok [B] bool): ok
+    False where only the host's BWT inverse can place a row (_bwt_inverse).
+    A row that ZRLT's inverse rejects raises ValueError."""
     rk_in = zin[:, :rank_len].clone()
     if bool(zran.any()):
         rk_in[zran] = _zrlt_inverse(zin[zran], rank_len, zlen[zran])
@@ -507,8 +515,6 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
         else:
             out_rows[bi] = host(bi)
 
-    _ops.count("l5_decode_device_blocks", len(dev_rows))
-
     def inverse(group, d):
         zin_pad = max(max(len(e) for _, e, _ in group), rank_len)
         zin = np.zeros((len(group), zin_pad), np.uint8)
@@ -516,12 +522,20 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
             zin[j, :len(e)] = e
         zlen = torch.tensor([len(e) for _, e, _ in group], device=d)
         zran = torch.tensor([zr for _, _, zr in group], device=d)
-        return list(_device_l5_inv(torch.from_numpy(zin).to(d), zlen, zran,
-                                   rank_len, n, pis).cpu().numpy())
+        out, ok = _device_l5_inv(torch.from_numpy(zin).to(d), zlen, zran,
+                                 rank_len, n, pis)
+        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        return [row if good else None for row, good in zip(out, ok)]
 
-    for (bi, _, _), row in zip(dev_rows, _over_mesh(dev_rows, n, mesh,
-                                                    inverse)):
-        out_rows[bi] = row
+    rows = _over_mesh(dev_rows, n, mesh, inverse)
+    fell_back = sum(row is None for row in rows)
+    _ops.count("l5_decode_device_blocks", len(dev_rows) - fell_back)
+    if fell_back:
+        _ops.count("l5_decode_host_fallback_blocks", fell_back)
+    for (bi, _, _), row in zip(dev_rows, rows):
+        # None: a corrupt row only the host's BWT inverse places; its
+        # outcome (bytes or error) is the host reader's
+        out_rows[bi] = host(bi) if row is None else row
 
     return b"".join(np.asarray(out_rows[bi]).tobytes()
                     for bi in range(len(frames)))

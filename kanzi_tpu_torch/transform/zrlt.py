@@ -83,14 +83,32 @@ class ZRLT(ByteTransform):
             out[np.repeat(run_off, nb) + within] = bits
         return out
 
+    def output_limit(self, src_len: int) -> Optional[int]:
+        """The most bytes the inverse may give in a block decode: 4 times
+        the decode buffer's capacity (the block size, or the payload
+        where larger; a valid block's stages before ZRLT add at most an
+        eighth and 8 KiB each) and 1 MiB. Past it the run is corrupt: a
+        run of k digits asks for 2^k bytes. None (no bound) for a
+        transform outside a block decode, whose context has neither."""
+        cap = max(self.ctx.get_int("_decodeCapacity", 0),
+                  self.ctx.get_int("blockSize", 0))
+        return 4 * max(cap, src_len) + (1 << 20) if cap else None
+
     def inverse(self, src: np.ndarray) -> np.ndarray:
         src = as_u8(src)
         n = len(src)
         if n == 0:
             return src.copy()
+        limit = self.output_limit(n)
         from kanzi_tpu_torch.utils import native
         if native.transforms_available():
-            return native.zrlt_inverse(src)
+            return native.zrlt_inverse(src, limit)
+
+        def zeros(run: int) -> bytes:
+            if limit is not None and len(out) + run > limit:
+                raise ValueError(f"ZRLT: malformed input (output past "
+                                 f"{limit} bytes)")
+            return bytes(run)
         out = bytearray()
         i = 0
         data = src.tolist()
@@ -109,7 +127,7 @@ class ZRLT(ByteTransform):
                     break
                 run_length -= 1
                 if run_length > 0:
-                    out += bytes(run_length)
+                    out += zeros(run_length)
                     run_length = 0
                     continue
             if val == 0xFF:
@@ -126,5 +144,5 @@ class ZRLT(ByteTransform):
         if run_length > 0:
             run_length -= 1
             if run_length > 0:
-                out += bytes(run_length)
+                out += zeros(run_length)
         return np.frombuffer(bytes(out), dtype=np.uint8)

@@ -95,6 +95,61 @@ def _build(name: str) -> str:
     return so
 
 
+def _embed() -> tuple:
+    """(include dir, library dir, library name) of this interpreter's
+    embedding library, libpythonX.Y.so."""
+    import sys
+    import sysconfig
+    return (sysconfig.get_paths()["include"],
+            sysconfig.get_config_var("LIBDIR"),
+            f"python{sys.version_info.major}.{sys.version_info.minor}")
+
+
+def capi_library() -> str:
+    """Path of the port's C API library (csrc/capi.cpp: the FILE* calls
+    of native/kanzi_tpu_capi.h over an embedded interpreter that imports
+    kanzi_tpu_torch from this checkout), compiled with g++ at first use
+    into BUILD_DIR under a name keyed by its source, the header, the
+    package root baked into it and the embedding library, and under a
+    lock, as _build keeps the others. Raises RuntimeError where this
+    interpreter has no shared libpython to embed."""
+    inc, libdir, ver = _embed()
+    if not (libdir and os.path.exists(os.path.join(libdir, f"lib{ver}.so"))):
+        raise RuntimeError(f"no lib{ver}.so to embed the interpreter")
+    src = os.path.join(_CSRC_DIR, "capi.cpp")
+    root = os.path.dirname(_PKG)
+    flags = ["-O2", "-shared", "-fPIC", f"-I{_NATIVE_DIR}", f"-I{inc}",
+             f'-DKANZI_TPU_TORCH_PYROOT="{root}"', src, f"-L{libdir}",
+             f"-l{ver}", "-ldl", f"-Wl,-rpath,{libdir}"]
+    h = hashlib.sha256("\0".join(flags).encode())
+    for path in (src, os.path.join(_NATIVE_DIR, "kanzi_tpu_capi.h")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR,
+                      f"libkanzitpu_torch_capi_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "capi.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            subprocess.run(["g++", *flags, "-o", tmp], check=True,
+                           capture_output=True, timeout=300)
+            os.replace(tmp, so)
+    return so
+
+
+def capi_link_flags(so: str) -> list:
+    """The flags a C program needs to include native/kanzi_tpu_capi.h,
+    link the library `so` (capi_library()) and run against both; the
+    interpreter's library comes with them, for a program that runs
+    Python through it too."""
+    inc, libdir, ver = _embed()
+    return [f"-I{_NATIVE_DIR}", f"-I{inc}", so, f"-L{libdir}", f"-l{ver}",
+            f"-Wl,-rpath,{libdir}", f"-Wl,-rpath,{os.path.dirname(so)}"]
+
+
 def _load(name: str):
     with _lock:
         if name in _libs:
@@ -823,17 +878,25 @@ def zrlt_forward(src: np.ndarray, cap: int):
     return None if n < 0 else dst[:n]
 
 
-def zrlt_inverse(src: np.ndarray) -> np.ndarray:
+def zrlt_inverse(src: np.ndarray, limit: int | None = None) -> np.ndarray:
+    """ZRLT inverse of src; limit (None: none) the most bytes the output
+    may hold: past it ValueError, before a byte of the run is written (a
+    corrupt run of k digits asks for 2^k bytes)."""
     lib = _load("transforms")
     src = np.ascontiguousarray(src, np.uint8)
     cap = 8 * len(src) + 1024
+    if limit is not None:
+        cap = min(cap, limit)
     while True:
         dst = np.empty(cap, np.uint8)
         n = lib.kz_zrlt_inverse(_u8ptr(src), len(src), _u8ptr(dst), cap)
         if n == -2:
             raise ValueError("ZRLT: malformed escape at end of input")
         if n == -3:
-            cap *= 4
+            if limit is not None and cap >= limit:
+                raise ValueError(f"ZRLT: malformed input (output past "
+                                 f"{limit} bytes)")
+            cap = cap * 4 if limit is None else min(cap * 4, limit)
             continue
         return dst[:n]
 

@@ -131,10 +131,29 @@ _FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|kanzi_tpu[. ]|"
                              r"kanzi_tpu$)")
 
 
+def _embedded_python(text: str) -> list:
+    """The Python a C++ source embeds: its raw string literals
+    R"PY( ... )PY"."""
+    return re.findall(r'R"PY\((.*?)\)PY"', text, re.S)
+
+
 def test_sources_name_no_jax_module():
-    """No source file of the port, nor chip_smoke.py, imports jax or
-    anything of kanzi_tpu."""
+    """No source file of the port, nor chip_smoke.py, nor the Python that
+    the port's C++ sources embed (csrc/capi.cpp's bootstrap), imports jax
+    or anything of kanzi_tpu."""
     paths = [*(ROOT / "kanzi_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     for path in paths:
         for line in path.read_text().splitlines():
             assert not _FOREIGN_IMPORT.match(line), f"{path}: {line}"
+    blocks = {path: _embedded_python(path.read_text())
+              for path in (ROOT / "kanzi_tpu_torch" / "csrc").glob("*.cpp")}
+    assert blocks[ROOT / "kanzi_tpu_torch" / "csrc" / "capi.cpp"]
+    for path, texts in blocks.items():
+        for text in texts:
+            for line in text.splitlines():
+                assert not _FOREIGN_IMPORT.match(line), f"{path}: {line}"
+    # the check reads the bootstrap of kanzi_tpu's own library as foreign
+    assert any(_FOREIGN_IMPORT.match(line)
+               for text in _embedded_python(
+                   (ROOT / "native" / "capi.cpp").read_text())
+               for line in text.splitlines())
