@@ -35,7 +35,7 @@ import numpy as np
 
 from kanzi_tpu_torch.bitstream import BitReader, BitWriter
 from kanzi_tpu_torch.core import magic as magiclib
-from kanzi_tpu_torch.core import stats
+from kanzi_tpu_torch.core import stats, trace
 from kanzi_tpu_torch.core.context import Context
 from kanzi_tpu_torch.core.errors import Error, KanziError
 from kanzi_tpu_torch.core.events import Event, EventType, ListenerBus
@@ -124,96 +124,100 @@ def _encode_block_phase1(block: np.ndarray, block_id: int, ctx: Context,
     pipeline (parallel/pipeline.py); the transform chain is then not run
     here, but every surrounding decision (mode byte, slot-cap evolution,
     framing) still is."""
-    block = np.ascontiguousarray(np.asarray(block, dtype=np.uint8))
-    block_len = len(block)
-    t_type = transform_type
-    e_type = entropy_type
-    mode = 0
+    with trace.span("block.forward", block=block_id,
+                    bytes_in=len(block)) as sp:
+        block = np.ascontiguousarray(np.asarray(block, dtype=np.uint8))
+        block_len = len(block)
+        t_type = transform_type
+        e_type = entropy_type
+        mode = 0
 
-    checksum = 0
-    if checksum_bits == 32:
-        checksum = xxhash32(block.tobytes())
-    elif checksum_bits == 64:
-        checksum = xxhash64(block.tobytes())
+        checksum = 0
+        if checksum_bits == 32:
+            checksum = xxhash32(block.tobytes())
+        elif checksum_bits == 64:
+            checksum = xxhash64(block.tobytes())
 
-    if listeners:
-        listeners.notify(Event(EventType.BEFORE_TRANSFORM, block_id, block_len,
-                               checksum=checksum if checksum_bits else None,
-                               hash_bits=checksum_bits))
+        if listeners:
+            listeners.notify(Event(EventType.BEFORE_TRANSFORM, block_id, block_len,
+                                   checksum=checksum if checksum_bits else None,
+                                   hash_bits=checksum_bits))
 
-    if block_len <= SMALL_BLOCK_SIZE:
-        t_type = tfactory.NONE_TYPE
-        e_type = 0
-        mode |= COPY_BLOCK_MASK
-    elif ctx.get_int("skipBlocks", 0):
-        skip = magiclib.is_compressed(magiclib.get_type(block[:4].tobytes()))
-        if not skip:
-            histo = stats.compute_histogram(block)
-            entropy = stats.first_order_entropy_1024(block_len, histo)
-            skip = entropy >= stats.INCOMPRESSIBLE_THRESHOLD
-        if skip:
+        if block_len <= SMALL_BLOCK_SIZE:
             t_type = tfactory.NONE_TYPE
             e_type = 0
             mode |= COPY_BLOCK_MASK
+        elif ctx.get_int("skipBlocks", 0):
+            skip = magiclib.is_compressed(magiclib.get_type(block[:4].tobytes()))
+            if not skip:
+                histo = stats.compute_histogram(block)
+                entropy = stats.first_order_entropy_1024(block_len, histo)
+                skip = entropy >= stats.INCOMPRESSIBLE_THRESHOLD
+            if skip:
+                t_type = tfactory.NONE_TYPE
+                e_type = 0
+                mode |= COPY_BLOCK_MASK
 
-    bctx = ctx.copy()
-    bctx.put("blockId", block_id)
-    bctx.put("size", block_len)
+        bctx = ctx.copy()
+        bctx.put("blockId", block_id)
+        bctx.put("size", block_len)
 
-    if block_len >= 4:
-        mg = magiclib.get_type(block[:4].tobytes())
-        if magiclib.is_compressed(mg):
-            bctx.put("dataType", stats.BIN)
-        elif magiclib.is_multimedia(mg):
-            bctx.put("dataType", stats.MULTIMEDIA)
-        elif magiclib.is_executable(mg):
-            bctx.put("dataType", stats.EXE)
+        if block_len >= 4:
+            mg = magiclib.get_type(block[:4].tobytes())
+            if magiclib.is_compressed(mg):
+                bctx.put("dataType", stats.BIN)
+            elif magiclib.is_multimedia(mg):
+                bctx.put("dataType", stats.MULTIMEDIA)
+            elif magiclib.is_executable(mg):
+                bctx.put("dataType", stats.EXE)
 
-    transform = tfactory.new_transform(bctx, t_type)
-    # model the slot's persistent buffers: input buffer starts at
-    # blockSize + blockSize/64 floor 64 KiB (processBuffer :461-470), work
-    # buffer at requiredSize (EncodingTask :733-740); both only grow
-    bsz = ctx.get_int("blockSize", max(block_len, 1024))
-    if slot_caps is None:
-        slot_caps = [0, 0]
-    if slot_caps[0] == 0:
-        slot_caps[0] = max(bsz + (bsz >> 6), 65536)
-    required = transform.max_encoded_length(block_len)
-    if slot_caps[1] < required:
-        slot_caps[1] = required
-    if transformed is not None:
-        out, skip_flags = transformed
-        if skip_flags == SKIP_MASK:
-            out = block
-    else:
-        out = transform.forward(block, input_capacity=slot_caps[0],
-                                output_capacity=slot_caps[1])
-        if transform.skip_flags == SKIP_MASK:
-            out = block  # every stage skipped: payload is the input bytes
-        skip_flags = transform.skip_flags
-    nb_transforms = len(transform)
-    post_len = len(out)
-    bctx.put("size", post_len)
+        transform = tfactory.new_transform(bctx, t_type)
+        # model the slot's persistent buffers: input buffer starts at
+        # blockSize + blockSize/64 floor 64 KiB (processBuffer :461-470), work
+        # buffer at requiredSize (EncodingTask :733-740); both only grow
+        bsz = ctx.get_int("blockSize", max(block_len, 1024))
+        if slot_caps is None:
+            slot_caps = [0, 0]
+        if slot_caps[0] == 0:
+            slot_caps[0] = max(bsz + (bsz >> 6), 65536)
+        required = transform.max_encoded_length(block_len)
+        if slot_caps[1] < required:
+            slot_caps[1] = required
+        if transformed is not None:
+            out, skip_flags = transformed
+            if skip_flags == SKIP_MASK:
+                out = block
+        else:
+            out = transform.forward(block, input_capacity=slot_caps[0],
+                                    output_capacity=slot_caps[1])
+            if transform.skip_flags == SKIP_MASK:
+                out = block  # every stage skipped: payload is the input bytes
+            skip_flags = transform.skip_flags
+        nb_transforms = len(transform)
+        post_len = len(out)
+        bctx.put("size", post_len)
 
-    # the entropy scratch regrows the slot's input buffer (:776-784)
-    slot_caps[0] = max(slot_caps[0], 256 * 1024, post_len,
-                       block_len + (block_len >> 3))
+        # the entropy scratch regrows the slot's input buffer (:776-784)
+        slot_caps[0] = max(slot_caps[0], 256 * 1024, post_len,
+                           block_len + (block_len >> 3))
 
-    data_size = 1 if post_len < 256 else (stats.log2(post_len) >> 3) + 1
-    if data_size > 4:
-        raise KanziError("Invalid block data length", Error.ERR_WRITE_FILE)
-    mode |= ((data_size - 1) & 0x03) << 5
+        data_size = 1 if post_len < 256 else (stats.log2(post_len) >> 3) + 1
+        if data_size > 4:
+            raise KanziError("Invalid block data length", Error.ERR_WRITE_FILE)
+        mode |= ((data_size - 1) & 0x03) << 5
 
-    if listeners:
-        listeners.notify(Event(EventType.AFTER_TRANSFORM, block_id, post_len,
-                               checksum=checksum if checksum_bits else None,
-                               hash_bits=checksum_bits))
+        if listeners:
+            listeners.notify(Event(EventType.AFTER_TRANSFORM, block_id, post_len,
+                                   checksum=checksum if checksum_bits else None,
+                                   hash_bits=checksum_bits))
 
-    return {"block_id": block_id, "mode": mode, "e_type": e_type,
-            "checksum": checksum, "checksum_bits": checksum_bits,
-            "out": out, "skip_flags": skip_flags,
-            "nb_transforms": nb_transforms, "post_len": post_len,
-            "bctx": bctx, "prepared_entropy": None}
+        if sp:
+            sp.set(bytes_out=post_len)
+        return {"block_id": block_id, "mode": mode, "e_type": e_type,
+                "checksum": checksum, "checksum_bits": checksum_bits,
+                "out": out, "skip_flags": skip_flags,
+                "nb_transforms": nb_transforms, "post_len": post_len,
+                "bctx": bctx, "prepared_entropy": None}
 
 
 def _encode_block_phase2(st: dict,
@@ -488,54 +492,58 @@ def _decode_block_entropy(payload: bytes, bit_len: int, block_id: int,
     the list under its key for a later cross-block flush, and the
     returned buffer stays unfilled in those regions until the flush.
     Returns the state tuple for _decode_block_finish."""
-    ibs = BitReader(payload)
-    t_type = transform_type
-    e_type = entropy_type
+    with trace.span("block.entropy", block=block_id,
+                    bytes_in=(bit_len + 7) >> 3) as sp:
+        ibs = BitReader(payload)
+        t_type = transform_type
+        e_type = entropy_type
 
-    mode = ibs.read_bits(8)
-    skip_flags = 0
-    if mode & COPY_BLOCK_MASK:
-        t_type = tfactory.NONE_TYPE
-        e_type = 0
-    else:
-        if mode & TRANSFORMS_MASK:
-            skip_flags = ibs.read_bits(8)
+        mode = ibs.read_bits(8)
+        skip_flags = 0
+        if mode & COPY_BLOCK_MASK:
+            t_type = tfactory.NONE_TYPE
+            e_type = 0
         else:
-            skip_flags = ((mode << 4) | 0x0F) & 0xFF
+            if mode & TRANSFORMS_MASK:
+                skip_flags = ibs.read_bits(8)
+            else:
+                skip_flags = ((mode << 4) | 0x0F) & 0xFF
 
-    data_size = 1 + ((mode >> 5) & 0x03)
-    pre_len = ibs.read_bits(8 * data_size)
-    max_transform_size = min(max(block_size + block_size // 2, 2048), MAX_BLOCK_SIZE)
-    if pre_len <= 0 or pre_len > max_transform_size:
-        raise KanziError(f"Invalid compressed block length: {pre_len}",
-                         Error.ERR_READ_FILE)
+        data_size = 1 + ((mode >> 5) & 0x03)
+        pre_len = ibs.read_bits(8 * data_size)
+        max_transform_size = min(max(block_size + block_size // 2, 2048), MAX_BLOCK_SIZE)
+        if pre_len <= 0 or pre_len > max_transform_size:
+            raise KanziError(f"Invalid compressed block length: {pre_len}",
+                             Error.ERR_READ_FILE)
 
-    checksum1 = 0
-    if checksum_bits:
-        checksum1 = ibs.read_bits(checksum_bits)
+        checksum1 = 0
+        if checksum_bits:
+            checksum1 = ibs.read_bits(checksum_bits)
 
-    if listeners:
-        listeners.notify(Event(EventType.BEFORE_ENTROPY, block_id,
-                               (bit_len + 7) >> 3,
-                               checksum=checksum1 if checksum_bits else None,
-                               hash_bits=checksum_bits))
+        if listeners:
+            listeners.notify(Event(EventType.BEFORE_ENTROPY, block_id,
+                                   (bit_len + 7) >> 3,
+                                   checksum=checksum1 if checksum_bits else None,
+                                   hash_bits=checksum_bits))
 
-    bctx = ctx.copy()
-    bctx.put("blockId", block_id)
-    bctx.put("size", pre_len)
-    # the decode output buffer capacity (DecodingTask allocates
-    # max(blockLength, payload bytes)); TEXT sizes its dictionary from it
-    bctx.put("_decodeCapacity", max(block_size, (bit_len + 7) >> 3))
-    for key, sink in (sinks or {}).items():
-        bctx.put(key, sink)
+        bctx = ctx.copy()
+        bctx.put("blockId", block_id)
+        bctx.put("size", pre_len)
+        # the decode output buffer capacity (DecodingTask allocates
+        # max(blockLength, payload bytes)); TEXT sizes its dictionary from it
+        bctx.put("_decodeCapacity", max(block_size, (bit_len + 7) >> 3))
+        for key, sink in (sinks or {}).items():
+            bctx.put(key, sink)
 
-    ed = efactory.new_decoder(ibs, bctx, e_type)
-    buf = ed.decode(pre_len)
-    if len(buf) != pre_len:
-        raise KanziError("Entropy decoding failed", Error.ERR_PROCESS_BLOCK)
-    ed.dispose()
-    return (buf, bctx, block_id, t_type, skip_flags, pre_len,
-            checksum_bits, checksum1, listeners)
+        ed = efactory.new_decoder(ibs, bctx, e_type)
+        buf = ed.decode(pre_len)
+        if len(buf) != pre_len:
+            raise KanziError("Entropy decoding failed", Error.ERR_PROCESS_BLOCK)
+        ed.dispose()
+        if sp:
+            sp.set(bytes_out=pre_len)
+        return (buf, bctx, block_id, t_type, skip_flags, pre_len,
+                checksum_bits, checksum1, listeners)
 
 
 def _decode_block_finish(state, out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -543,42 +551,45 @@ def _decode_block_finish(state, out: Optional[np.ndarray] = None) -> np.ndarray:
     after any pending entropy sink flush."""
     (buf, bctx, block_id, t_type, skip_flags, pre_len,
      checksum_bits, checksum1, listeners) = state
-    if listeners:
-        listeners.notify(Event(EventType.AFTER_ENTROPY, block_id, pre_len,
-                               checksum=checksum1 if checksum_bits else None,
-                               hash_bits=checksum_bits))
-        listeners.notify(Event(EventType.BEFORE_TRANSFORM, block_id, pre_len,
-                               checksum=checksum1 if checksum_bits else None,
-                               hash_bits=checksum_bits))
+    with trace.span("block.inverse", block=block_id, bytes_in=pre_len) as sp:
+        if listeners:
+            listeners.notify(Event(EventType.AFTER_ENTROPY, block_id, pre_len,
+                                   checksum=checksum1 if checksum_bits else None,
+                                   hash_bits=checksum_bits))
+            listeners.notify(Event(EventType.BEFORE_TRANSFORM, block_id, pre_len,
+                                   checksum=checksum1 if checksum_bits else None,
+                                   hash_bits=checksum_bits))
 
-    transform = tfactory.new_transform(bctx, t_type)
-    transform.skip_flags = skip_flags
-    data = None
-    if out is not None and checksum_bits == 0:
-        n = transform.inverse_into(buf, out)
-        if n is not None:
-            data = out[:n]
-    if data is None:
-        data = transform.inverse(buf)
+        transform = tfactory.new_transform(bctx, t_type)
+        transform.skip_flags = skip_flags
+        data = None
+        if out is not None and checksum_bits == 0:
+            n = transform.inverse_into(buf, out)
+            if n is not None:
+                data = out[:n]
+        if data is None:
+            data = transform.inverse(buf)
 
-    if checksum_bits == 32:
-        checksum2 = xxhash32(data.tobytes())
-        if checksum2 != checksum1:
-            raise KanziError(
-                f"Corrupted bitstream: expected checksum {checksum1:x}, found {checksum2:x}",
-                Error.ERR_CRC_CHECK)
-    elif checksum_bits == 64:
-        checksum2 = xxhash64(data.tobytes())
-        if checksum2 != checksum1:
-            raise KanziError(
-                f"Corrupted bitstream: expected checksum {checksum1:x}, found {checksum2:x}",
-                Error.ERR_CRC_CHECK)
+        if checksum_bits == 32:
+            checksum2 = xxhash32(data.tobytes())
+            if checksum2 != checksum1:
+                raise KanziError(
+                    f"Corrupted bitstream: expected checksum {checksum1:x}, found {checksum2:x}",
+                    Error.ERR_CRC_CHECK)
+        elif checksum_bits == 64:
+            checksum2 = xxhash64(data.tobytes())
+            if checksum2 != checksum1:
+                raise KanziError(
+                    f"Corrupted bitstream: expected checksum {checksum1:x}, found {checksum2:x}",
+                    Error.ERR_CRC_CHECK)
 
-    if listeners:
-        listeners.notify(Event(EventType.AFTER_TRANSFORM, block_id, len(data),
-                               checksum=checksum1 if checksum_bits else None,
-                               hash_bits=checksum_bits))
-    return data
+        if listeners:
+            listeners.notify(Event(EventType.AFTER_TRANSFORM, block_id, len(data),
+                                   checksum=checksum1 if checksum_bits else None,
+                                   hash_bits=checksum_bits))
+        if sp:
+            sp.set(bytes_out=len(data))
+        return data
 
 
 def decode_block(payload: bytes, bit_len: int, block_id: int, ctx: Context,
@@ -757,16 +768,17 @@ class CompressedWriter:
         (_encode_block_phase1, in block order, its batched entropy
         prepared or not) through phase 2 into the stream. For a caller
         that runs the blocks' stages itself and then close()s."""
-        self._write_header()
-        verbose5 = self.ctx.get_int("verbosity", 0) > 4 and self.listeners
-        for st in states:
-            payload, bits = _encode_block_phase2(st, self.listeners)
-            if verbose5:
-                self.listeners.notify(Event(
-                    EventType.BLOCK_INFO, st["block_id"], (bits + 7) >> 3,
-                    offset=self._obs.written(),
-                    skip_flags=st["skip_flags"]))
-            self._commit(payload, bits)
+        with trace.span("container.commit", blocks=len(states)):
+            self._write_header()
+            verbose5 = self.ctx.get_int("verbosity", 0) > 4 and self.listeners
+            for st in states:
+                payload, bits = _encode_block_phase2(st, self.listeners)
+                if verbose5:
+                    self.listeners.notify(Event(
+                        EventType.BLOCK_INFO, st["block_id"],
+                        (bits + 7) >> 3, offset=self._obs.written(),
+                        skip_flags=st["skip_flags"]))
+                self._commit(payload, bits)
 
     def _commit(self, payload: bytes, written: int) -> None:
         # ordered commit: [5b lw-3][lw bits bit-length][payload bits]
@@ -783,11 +795,12 @@ class CompressedWriter:
             self._pending.clear()
             self._emit_block(np.frombuffer(block, dtype=np.uint8))
         self._flush_blocks()
-        self._write_header()  # empty input still emits a header
-        # end of stream marker (:415-417)
-        self._obs.write_bits(0, 5)
-        self._obs.write_bits(0, 3)
-        self._obs.close_to_sink()
+        with trace.span("container.commit"):
+            self._write_header()  # empty input still emits a header
+            # end of stream marker (:415-417)
+            self._obs.write_bits(0, 5)
+            self._obs.write_bits(0, 3)
+            self._obs.close_to_sink()
         self._obs = BitWriter(sink=self.out)
         self._closed = True
 
@@ -967,7 +980,8 @@ class CompressedReader:
                     rest = [np.array(out[:pos]), data] + list(gen)
                     return np.concatenate(rest).tobytes()
                 if data.base is not out:         # not decoded in place
-                    out[pos:pos + data.size] = data
+                    with trace.span("container.output", bytes=data.size):
+                        out[pos:pos + data.size] = data
                 pos += data.size
             if parts is not None:
                 return np.concatenate(parts).tobytes()
@@ -1029,7 +1043,8 @@ class CompressedReader:
                 if bits > (1 << 34):
                     raise KanziError("Invalid block size",
                                      Error.ERR_BLOCK_SIZE)
-                payload = self.ibs.read_payload(bits)
+                with trace.span("container.frames", block=block_id):
+                    payload = self.ibs.read_payload(bits)
                 if block_id < from_block:
                     continue
                 if block_id >= to_block:

@@ -24,9 +24,12 @@ Layout:
 """
 
 import os as _os
-import threading as _threading
 
 import torch
+
+# the launch counters, kept with the spans in core/trace.py (where their
+# keys are listed): the same objects
+from kanzi_tpu_torch.core.trace import COUNTERS, count, reset_counters  # noqa: F401
 
 # KANZI_TPU_DISABLE=1 forces the pure host (native C++/numpy) path, as
 # it does for kanzi_tpu.
@@ -52,29 +55,3 @@ def device() -> torch.device:
                            "plain PyTorch versions)")
     return torch.device("cuda", torch.cuda.current_device())
 
-
-# Launch counters: a wrapper bumps its kernel's key where it launches the
-# kernel, and key + "_plain" where it takes the plain version for a CPU
-# tensor. The device BWT and the device level-5 chain count the blocks
-# they take ("bwt_forward_device", "l5_{encode,decode}_device_blocks"),
-# the level-6 and level-7 mesh decodes the blocks they decode on the card
-# ("l6_decode_device_blocks", "l7_decode_device_blocks"), the Huffman
-# coder the full chunks it codes on the host beside the kernels
-# ("huff_host_chunks"), the level-7 mesh chain the CM blocks it leaves to
-# the host coder ("cm_host_blocks"), the LZ match pass each pass on the
-# card ("lz_match_pass", beside its four kernels' own counts), the LZ
-# transform the blocks it parses from the pass's hints
-# ("lz_hinted_blocks").
-# Tests and chip_smoke.py read them to show which path ran.
-COUNTERS = {}
-_COUNT_LOCK = _threading.Lock()
-
-
-def count(key: str, n: int = 1) -> None:
-    with _COUNT_LOCK:
-        COUNTERS[key] = COUNTERS.get(key, 0) + n
-
-
-def reset_counters() -> None:
-    with _COUNT_LOCK:
-        COUNTERS.clear()

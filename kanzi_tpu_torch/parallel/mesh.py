@@ -20,6 +20,9 @@ decode (ops.ans.ans0_decode_flat); Huffman D and E
 (ops.fpaq.fpaq_encode_batch, fpaq_decode_records) and CM I and J
 (ops.cm.cm_encode_batch, cm_decode_records), every item of a shard in
 one launch each way.
+
+Each entropy stage is a span (core/trace.py), entropy.<coder>.<encode or
+decode>, and each shard a mesh.shard span below it in its worker thread.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 import kanzi_tpu_torch.ops as _ops
+from kanzi_tpu_torch.core import trace
 from kanzi_tpu_torch.ops import ans as dans
 from kanzi_tpu_torch.ops import cm as dcm
 from kanzi_tpu_torch.ops import fpaq as dfp
@@ -72,19 +76,24 @@ def _run_shards(mesh, n: int, fn) -> list:
     """[fn(start, stop, device) for each non-empty shard of a batch of n
     items (_bounds)] in shard order (the first shard alone, empty, when
     n is 0); one host thread a distinct device, a device's shards in
-    turn. A shard's error raises here."""
+    turn. A shard's error raises here. Each shard is a mesh.shard span
+    under the span open where _run_shards is called."""
     shards = [(a, b, d) for (a, b), d in zip(_bounds(n, len(mesh)), mesh)
               if b > a] or [(0, 0, mesh[0])]
     by_dev = {}
     for j, (_, _, d) in enumerate(shards):
         by_dev.setdefault(d, []).append(j)
     out = [None] * len(shards)
+    parent = trace.current()         # a worker thread does not inherit it
 
     def work(js):
         for j in js:
             a, b, d = shards[j]
             with (torch.cuda.device(d) if d.type == "cuda"
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), \
+                    trace.span("mesh.shard", parent) as sp:
+                if sp:
+                    sp.set(device=str(d), items=b - a)
                 out[j] = fn(a, b, d)
 
     with ThreadPoolExecutor(len(by_dev)) as ex:
@@ -114,9 +123,14 @@ def shard_ans0_encode(chunks: np.ndarray, mesh=None):
     c's payload starts at the exclusive cumsum of plen."""
     if mesh is None:
         mesh = block_mesh()
-    parts = _run_shards(mesh, chunks.shape[0], lambda a, b, d:
-                        dans.encode_chunks_np(chunks[a:b], d))
-    return tuple(_cat(x) for x in zip(*parts))
+    with trace.span("entropy.ans0.encode") as sp:
+        parts = _run_shards(mesh, chunks.shape[0], lambda a, b, d:
+                            dans.encode_chunks_np(chunks[a:b], d))
+        res = tuple(_cat(x) for x in zip(*parts))
+        if sp:
+            sp.set(items=chunks.shape[0], bytes_in=chunks.nbytes,
+                   bytes_out=res[3].size)
+    return res
 
 
 def shard_ans0_decode(freqs: np.ndarray, states: np.ndarray,
@@ -134,8 +148,13 @@ def shard_ans0_decode(freqs: np.ndarray, states: np.ndarray,
             freqs[a:b], states[a:b], payload[a:b].reshape(-1),
             np.arange(b - a, dtype=np.int64) * w, d)
 
-    return tuple(_cat(x) for x in zip(*_run_shards(mesh, freqs.shape[0],
-                                                    run)))
+    with trace.span("entropy.ans0.decode") as sp:
+        res = tuple(_cat(x) for x in zip(*_run_shards(mesh, freqs.shape[0],
+                                                        run)))
+        if sp:
+            sp.set(items=freqs.shape[0], bytes_in=int(res[1].sum()),
+                   bytes_out=res[0].size)
+    return res
 
 
 def shard_huffman_encode(chunks: np.ndarray, mesh=None):
@@ -145,9 +164,14 @@ def shard_huffman_encode(chunks: np.ndarray, mesh=None):
     flat, the one pair stream, is the shards' streams in shard order."""
     if mesh is None:
         mesh = block_mesh()
-    parts = _run_shards(mesh, chunks.shape[0], lambda a, b, d:
-                        dhuff.encode_chunks_np(chunks[a:b], d))
-    return tuple(_cat(x) for x in zip(*parts))
+    with trace.span("entropy.huffman.encode") as sp:
+        parts = _run_shards(mesh, chunks.shape[0], lambda a, b, d:
+                            dhuff.encode_chunks_np(chunks[a:b], d))
+        res = tuple(_cat(x) for x in zip(*parts))
+        if sp:
+            sp.set(items=chunks.shape[0], bytes_in=chunks.nbytes,
+                   bytes_out=res[4].nbytes)
+    return res
 
 
 def shard_huffman_decode(codes: np.ndarray, sizes: np.ndarray,
@@ -165,7 +189,12 @@ def shard_huffman_decode(codes: np.ndarray, sizes: np.ndarray,
         return dhuff.huffman_decode_chunks(
             codes[a:b], sizes[a:b], pay[bd[0]:bd[-1]], bd - bd[0], d)
 
-    return _cat(_run_shards(mesh, codes.shape[0], run))
+    with trace.span("entropy.huffman.decode") as sp:
+        res = _cat(_run_shards(mesh, codes.shape[0], run))
+        if sp:
+            sp.set(items=codes.shape[0], bytes_in=pay.size,
+                   bytes_out=res.size)
+    return res
 
 
 def shard_fpaq_encode(streams: np.ndarray, lens: np.ndarray, mesh=None,
@@ -179,12 +208,17 @@ def shard_fpaq_encode(streams: np.ndarray, lens: np.ndarray, mesh=None,
     if mesh is None:
         mesh = block_mesh()
     lens = np.asarray(lens)
-    parts = _run_shards(mesh, streams.shape[0], lambda a, b, d:
-                        dfp.fpaq_encode_batch(streams[a:b], lens[a:b],
-                                              chunk_bytes, d))
-    return ([x for p in parts for x in p[0]],
-            [x for p in parts for x in p[1]],
-            _cat([p[2] for p in parts]), _cat([p[3] for p in parts]))
+    with trace.span("entropy.fpaq.encode") as sp:
+        parts = _run_shards(mesh, streams.shape[0], lambda a, b, d:
+                            dfp.fpaq_encode_batch(streams[a:b], lens[a:b],
+                                                  chunk_bytes, d))
+        res = ([x for p in parts for x in p[0]],
+               [x for p in parts for x in p[1]],
+               _cat([p[2] for p in parts]), _cat([p[3] for p in parts]))
+        if sp:
+            sp.set(items=len(lens), bytes_in=int(lens.sum()),
+                   bytes_out=sum(len(x) for x in res[0]))
+    return res
 
 
 def shard_fpaq_decode(frames, lens: np.ndarray, mesh=None,
@@ -198,10 +232,15 @@ def shard_fpaq_decode(frames, lens: np.ndarray, mesh=None,
     if mesh is None:
         mesh = block_mesh()
     frames, lens = list(frames), np.asarray(lens)
-    parts = _run_shards(mesh, len(lens), lambda a, b, d:
-                        dfp.fpaq_decode_records(frames[a:b], lens[a:b],
-                                                chunk_bytes, d))
-    return _join_rows(parts, int(lens.max(initial=0)))
+    with trace.span("entropy.fpaq.decode") as sp:
+        parts = _run_shards(mesh, len(lens), lambda a, b, d:
+                            dfp.fpaq_decode_records(frames[a:b], lens[a:b],
+                                                    chunk_bytes, d))
+        res = _join_rows(parts, int(lens.max(initial=0)))
+        if sp:
+            sp.set(items=len(lens), bytes_out=int(lens.sum()),
+                   bytes_in=sum(len(p) for f in frames for _, p in f))
+    return res
 
 
 def shard_cm_encode(streams: np.ndarray, lens: np.ndarray, mesh=None,
@@ -213,10 +252,15 @@ def shard_cm_encode(streams: np.ndarray, lens: np.ndarray, mesh=None,
     if mesh is None:
         mesh = block_mesh()
     lens = np.asarray(lens)
-    parts = _run_shards(mesh, streams.shape[0], lambda a, b, d:
-                        dcm.cm_encode_batch(streams[a:b], lens[a:b],
-                                            bs_version, d))
-    return tuple([x for p in parts for x in p[k]] for k in range(3))
+    with trace.span("entropy.cm.encode") as sp:
+        parts = _run_shards(mesh, streams.shape[0], lambda a, b, d:
+                            dcm.cm_encode_batch(streams[a:b], lens[a:b],
+                                                bs_version, d))
+        res = tuple([x for p in parts for x in p[k]] for k in range(3))
+        if sp:
+            sp.set(items=len(lens), bytes_in=int(lens.sum()),
+                   bytes_out=sum(len(x) for x in res[0]))
+    return res
 
 
 def shard_cm_decode(records, lens: np.ndarray, mesh=None,
@@ -230,7 +274,12 @@ def shard_cm_decode(records, lens: np.ndarray, mesh=None,
     if mesh is None:
         mesh = block_mesh()
     records, lens = list(records), np.asarray(lens)
-    parts = _run_shards(mesh, len(lens), lambda a, b, d:
-                        dcm.cm_decode_records(records[a:b], lens[a:b],
-                                              bs_version, d))
-    return _join_rows(parts, int(lens.max(initial=0)))
+    with trace.span("entropy.cm.decode") as sp:
+        parts = _run_shards(mesh, len(lens), lambda a, b, d:
+                            dcm.cm_decode_records(records[a:b], lens[a:b],
+                                                  bs_version, d))
+        res = _join_rows(parts, int(lens.max(initial=0)))
+        if sp:
+            sp.set(items=len(lens), bytes_out=int(lens.sum()),
+                   bytes_in=sum(len(p) + 7 for _, p in records))
+    return res

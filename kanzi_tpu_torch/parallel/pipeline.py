@@ -30,6 +30,14 @@ stages' chunks or streams, and the level-5 chain's rows of blocks. Each
 container is byte-identical with the host writer's whatever the mesh,
 and its decompress_*_mesh inverts it and kanzi_tpu's; the tests and
 chip_smoke.py hold both.
+
+Each call is a root span (core/trace.py), call.compress or
+call.decompress, over the spans of its layers: the level-5 route
+(l5.route) and card passes (l5.device.forward, l5.device.inverse), each
+block's host work (block.forward; block.entropy and block.inverse), the
+entropy stage of every block in one batch (entropy.batch, around the
+coder's entropy.<coder>.<encode or decode>), and the container's commit,
+frame loop and output join (container.commit, .frames, .output).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 
 import kanzi_tpu_torch.ops as _ops
 from kanzi_tpu_torch.bitstream import BitReader
+from kanzi_tpu_torch.core import trace
 from kanzi_tpu_torch.core.context import Context
 from kanzi_tpu_torch.core.stats import log2 as _log2
 from kanzi_tpu_torch.entropy import fpaq as efpaq
@@ -331,10 +340,16 @@ def compress_l5_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     with the host writer's either way."""
     if mesh is None:
         mesh = block_mesh()
+    with trace.span("call.compress", bytes=len(data),
+                    blocks=-(-len(data) // block_size)):
+        return _compress_l5(data, block_size, mesh)
+
+
+def _compress_l5(data: bytes, n: int, mesh) -> bytes:
     dev = mesh[0]
-    n = block_size
     full = len(data) // n
-    blocks = np.frombuffer(data[:full * n], np.uint8).reshape(full, n)
+    src = np.frombuffer(data, np.uint8)              # a view: no copy
+    blocks = src[:full * n].reshape(full, n)
 
     sink = _pyio.BytesIO()
     w = CompressedWriter(sink, transform=CHAIN, entropy=ENTROPY,
@@ -348,25 +363,37 @@ def compress_l5_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
     bctx0.put("size", n)
     required = new_transform(bctx0, t_type).max_encoded_length(n)
     device_ok = []
-    for b in range(full):
-        bctx = w.ctx.copy()
-        bctx.put("blockId", b + 1)
-        bctx.put("size", n)
-        ok = True
-        for t in new_transform(bctx, t_type).transforms[:2]:   # TEXT, UTF
-            t.output_capacity = required
-            if t.forward(blocks[b]) is not None:
-                ok = False                               # text: host chain
-                break
-        device_ok.append(ok)
+    with trace.span("l5.route", blocks=full):
+        for b in range(full):
+            bctx = w.ctx.copy()
+            bctx.put("blockId", b + 1)
+            bctx.put("size", n)
+            ok = True
+            seq = new_transform(bctx, t_type)
+            for t, name in zip(seq.transforms[:2], seq.names):  # TEXT, UTF
+                t.output_capacity = required
+                # a trial: its output is thrown away either way
+                with trace.span("transform." + name + ".forward",
+                                bytes_in=n, kept=False) as sp:
+                    out = t.forward(blocks[b])
+                    if sp:
+                        sp.set(bytes_out=0 if out is None else len(out))
+                if out is not None:
+                    ok = False                           # text: host chain
+                    break
+            device_ok.append(ok)
 
     rows = [b for b in range(full) if device_ok[b]]
     _ops.count("l5_encode_device_blocks", len(rows))
 
     def forward(group, d):
-        x = torch.from_numpy(blocks[group]).to(d)
-        rk, zo, zt = (t.cpu().numpy() for t in _device_l5(x, required))
-        return [(rk[j], zo[j], int(zt[j])) for j in range(len(group))]
+        with trace.span("l5.device.forward", blocks=len(group),
+                        bytes=len(group) * n) as sp:
+            if sp:
+                sp.set(device=str(d))
+            x = torch.from_numpy(blocks[group]).to(d)
+            rk, zo, zt = (t.cpu().numpy() for t in _device_l5(x, required))
+            return [(rk[j], zo[j], int(zt[j])) for j in range(len(group))]
 
     results = dict(zip(rows, _over_mesh(rows, n, mesh, forward)))
 
@@ -405,45 +432,47 @@ def compress_l5_mesh(data: bytes, block_size: int, mesh=None) -> bytes:
             slot_caps=w.slot_caps[slot],
             transformed=(np.ascontiguousarray(tout, np.uint8), skip_flags)))
 
-    tail = data[full * n:]                               # host chain
-    if tail:
+    if len(data) > full * n:                             # host chain
         states.append(_encode_block_phase1(
-            np.frombuffer(tail, np.uint8), full + 1, w.ctx, t_type, e_type,
+            src[full * n:], full + 1, w.ctx, t_type, e_type,
             slot_caps=w.slot_caps[full % w.jobs]))
 
-    prepare_ans0_batch_mesh(states, mesh)
+    with trace.span("entropy.batch", blocks=len(states)):
+        prepare_ans0_batch_mesh(states, mesh)
     w.commit_states(states)
     w.close()
     return sink.getvalue()
 
 
-def _parse_ans0_block(payload, bits: int, block_size: int):
+def _parse_ans0_block(payload, bits: int, block_size: int, block_id: int):
     """Host parse of one block's framing, then its ANS0 stage through
     the host decoder with a sink, which queues the full 16 KiB chunks
-    and decodes the others. Returns (pre_len, skip_flags, ebuf,
-    records): ebuf [pre_len] uint8, records = (start, freqs[256],
-    states[4], payload bytes, size) of the queued chunks, whose bytes in
-    ebuf the caller fills; or None where the block needs the host
-    path."""
-    ibs = BitReader(payload)
-    mode = ibs.read_bits(8)
-    if mode & COPY_BLOCK_MASK:
-        return None
-    if mode & 0x10:
-        skip_flags = ibs.read_bits(8)
-    else:
-        skip_flags = ((mode << 4) | 0x0F) & 0xFF
-    data_size = 1 + ((mode >> 5) & 0x03)
-    pre_len = ibs.read_bits(8 * data_size)
-    if pre_len <= 32:                                 # raw-bytes entropy path
-        return None
-    sink = []
-    ctx = Context()
-    ctx.put("_ans0DecodeSink", sink)
-    ebuf = ANSRangeDecoder(ibs, ctx).decode(pre_len)
-    if len(ebuf) != pre_len:
-        return None                                   # truncating stream
-    return pre_len, skip_flags, ebuf, [rc for _, q in sink for rc in q]
+    and decodes the others, in the block's block.entropy span. Returns
+    (pre_len, skip_flags, ebuf, records): ebuf [pre_len] uint8, records
+    = (start, freqs[256], states[4], payload bytes, size) of the queued
+    chunks, whose bytes in ebuf the caller fills; or None where the
+    block needs the host path."""
+    with trace.span("block.entropy", block=block_id,
+                    bytes_in=len(payload)):
+        ibs = BitReader(payload)
+        mode = ibs.read_bits(8)
+        if mode & COPY_BLOCK_MASK:
+            return None
+        if mode & 0x10:
+            skip_flags = ibs.read_bits(8)
+        else:
+            skip_flags = ((mode << 4) | 0x0F) & 0xFF
+        data_size = 1 + ((mode >> 5) & 0x03)
+        pre_len = ibs.read_bits(8 * data_size)
+        if pre_len <= 32:                             # raw-bytes entropy path
+            return None
+        sink = []
+        ctx = Context()
+        ctx.put("_ans0DecodeSink", sink)
+        ebuf = ANSRangeDecoder(ibs, ctx).decode(pre_len)
+        if len(ebuf) != pre_len:
+            return None                               # truncating stream
+        return pre_len, skip_flags, ebuf, [rc for _, q in sink for rc in q]
 
 
 def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
@@ -454,6 +483,14 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
     host path; the output equals the host reader's either way."""
     if mesh is None:
         mesh = block_mesh()
+    with trace.span("call.decompress", bytes_in=len(blob)) as sp:
+        out = _decompress_l5(blob, mesh, sp)
+        if sp:
+            sp.set(bytes=len(out))
+        return out
+
+
+def _decompress_l5(blob: bytes, mesh, root) -> bytes:
     dev = mesh[0]
     r = CompressedReader(blob, device=dev)           # header parsed here
     n = r.block_size
@@ -461,39 +498,46 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
     rank_len = n + 1 + 8 * pis
 
     frames = []                                       # (payload, bits)
-    while True:
-        lr_ = 3 + r.ibs.read_bits(5)
-        bits = r.ibs.read_bits(lr_)
-        if bits == 0:
-            break
-        frames.append((r.ibs.read_payload(bits), bits))
+    with trace.span("container.frames"):
+        while True:
+            lr_ = 3 + r.ibs.read_bits(5)
+            bits = r.ibs.read_bits(lr_)
+            if bits == 0:
+                break
+            frames.append((r.ibs.read_payload(bits), bits))
+    if root:
+        root.set(blocks=len(frames))
 
     def host(bi):
         payload, bits = frames[bi]
         return decode_block(payload, bits, bi + 1, r.ctx, r.transform_type,
                             r.entropy_type, r.block_size, r.checksum_bits)
 
-    # phase 1: host parse; every full chunk of the file in one decode
-    # (a block checksum sits in the framing: such files take the host
-    # path)
-    parsed = [None if r.checksum_bits else _parse_ans0_block(p, b, n)
-              for p, b in frames]
+    # phase 1: host parse; every full chunk of the file in one decode,
+    # its rows written into their blocks' entropy buffers (a block
+    # checksum sits in the framing: such files take the host path)
+    parsed = [None if r.checksum_bits else _parse_ans0_block(p, b, n, bi + 1)
+              for bi, (p, b) in enumerate(frames)]
     all_recs = [rc for p in parsed if p is not None for rc in p[3]]
-    chunk_out = {}
     if all_recs:
-        freqs = np.stack([rc[1] for rc in all_recs])
-        states = np.stack([rc[2] for rc in all_recs])
-        pay = np.zeros((len(all_recs), dans.PAYLOAD_MAX + 2), np.uint8)
-        for i, rc in enumerate(all_recs):
-            pay[i, :rc[4]] = np.frombuffer(rc[3], np.uint8)
-        dec, cur = shard_ans0_decode(freqs, states, pay, mesh)
-        for i, rc in enumerate(all_recs):
-            if cur[i] != rc[4]:
-                raise ValueError("ANS chunk payload size mismatch")
-        chunk_out = {id(rc): dec[i] for i, rc in enumerate(all_recs)}
+        with trace.span("entropy.batch", blocks=len(parsed)):
+            freqs = np.stack([rc[1] for rc in all_recs])
+            states = np.stack([rc[2] for rc in all_recs])
+            pay = np.zeros((len(all_recs), dans.PAYLOAD_MAX + 2), np.uint8)
+            for i, rc in enumerate(all_recs):
+                pay[i, :rc[4]] = np.frombuffer(rc[3], np.uint8)
+            dec, cur = shard_ans0_decode(freqs, states, pay, mesh)
+            for i, rc in enumerate(all_recs):
+                if cur[i] != rc[4]:
+                    raise ValueError("ANS chunk payload size mismatch")
+            i = 0
+            for p in parsed:
+                for rc in (p[3] if p is not None else ()):
+                    p[2][rc[0]:rc[0] + dans.CHUNK] = dec[i]
+                    i += 1
 
-    # phase 2: entropy assembly per block, then the inverse transforms
-    # of the device-chain blocks on the card
+    # phase 2: the inverse transforms of the device-chain blocks on the
+    # card
     out_rows = {}
     dev_rows = []                                     # (bi, ebuf, zrlt ran)
     for bi, p in enumerate(parsed):
@@ -501,8 +545,6 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
             out_rows[bi] = host(bi)
             continue
         pre_len, skip_flags, ebuf, records = p
-        for rc in records:
-            ebuf[rc[0]:rc[0] + dans.CHUNK] = chunk_out[id(rc)]
         # stage pattern: TEXT/UTF skipped, BWT+RANK ran, ZRLT ran|skipped
         text_utf_skipped = (skip_flags & 0xC0) == 0xC0
         bwt_rank_ran = (skip_flags & 0x30) == 0
@@ -516,16 +558,20 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
             out_rows[bi] = host(bi)
 
     def inverse(group, d):
-        zin_pad = max(max(len(e) for _, e, _ in group), rank_len)
-        zin = np.zeros((len(group), zin_pad), np.uint8)
-        for j, (_, e, _) in enumerate(group):
-            zin[j, :len(e)] = e
-        zlen = torch.tensor([len(e) for _, e, _ in group], device=d)
-        zran = torch.tensor([zr for _, _, zr in group], device=d)
-        out, ok = _device_l5_inv(torch.from_numpy(zin).to(d), zlen, zran,
-                                 rank_len, n, pis)
-        out, ok = out.cpu().numpy(), ok.cpu().numpy()
-        return [row if good else None for row, good in zip(out, ok)]
+        with trace.span("l5.device.inverse", blocks=len(group),
+                        bytes=len(group) * n) as sp:
+            if sp:
+                sp.set(device=str(d))
+            zin_pad = max(max(len(e) for _, e, _ in group), rank_len)
+            zin = np.zeros((len(group), zin_pad), np.uint8)
+            for j, (_, e, _) in enumerate(group):
+                zin[j, :len(e)] = e
+            zlen = torch.tensor([len(e) for _, e, _ in group], device=d)
+            zran = torch.tensor([zr for _, _, zr in group], device=d)
+            out, ok = _device_l5_inv(torch.from_numpy(zin).to(d), zlen,
+                                     zran, rank_len, n, pis)
+            out, ok = out.cpu().numpy(), ok.cpu().numpy()
+            return [row if good else None for row, good in zip(out, ok)]
 
     rows = _over_mesh(dev_rows, n, mesh, inverse)
     fell_back = sum(row is None for row in rows)
@@ -537,8 +583,9 @@ def decompress_l5_mesh(blob: bytes, mesh=None) -> bytes:
         # outcome (bytes or error) is the host reader's
         out_rows[bi] = host(bi) if row is None else row
 
-    return b"".join(np.asarray(out_rows[bi]).tobytes()
-                    for bi in range(len(frames)))
+    with trace.span("container.output"):
+        return b"".join(np.asarray(out_rows[bi]).tobytes()
+                        for bi in range(len(frames)))
 
 
 # ---------------------------------------------------------------------------
@@ -588,20 +635,24 @@ def _compress_host_chain_mesh(data: bytes, block_size: int, mesh,
     if mesh is None:
         mesh = block_mesh()
     n = block_size
-    sink = _pyio.BytesIO()
-    w = CompressedWriter(sink, transform=chain, entropy=entropy,
-                         block_size=n, original_size=len(data),
-                         device=mesh[0])
-    t_type = transform_name_to_type(chain)
-    e_type = entropy_name_to_type(entropy)
-    states = [_encode_block_phase1(
-        np.frombuffer(data[pos:pos + n], np.uint8), b + 1, w.ctx, t_type,
-        e_type, slot_caps=w.slot_caps[b % w.jobs])
-        for b, pos in enumerate(range(0, len(data), n))]
-    prepare_fn(states, mesh)
-    w.commit_states(states)
-    w.close()
-    return sink.getvalue()
+    with trace.span("call.compress", bytes=len(data),
+                    blocks=-(-len(data) // n)):
+        sink = _pyio.BytesIO()
+        w = CompressedWriter(sink, transform=chain, entropy=entropy,
+                             block_size=n, original_size=len(data),
+                             device=mesh[0])
+        t_type = transform_name_to_type(chain)
+        e_type = entropy_name_to_type(entropy)
+        src = np.frombuffer(data, np.uint8)          # a view: no copy
+        states = [_encode_block_phase1(
+            src[pos:pos + n], b + 1, w.ctx, t_type, e_type,
+            slot_caps=w.slot_caps[b % w.jobs])
+            for b, pos in enumerate(range(0, len(data), n))]
+        with trace.span("entropy.batch", blocks=len(states)):
+            prepare_fn(states, mesh)
+        w.commit_states(states)
+        w.close()
+        return sink.getvalue()
 
 
 def _decompress_host_chain_mesh(blob: bytes, mesh, key: str,
@@ -613,10 +664,19 @@ def _decompress_host_chain_mesh(blob: bytes, mesh, key: str,
     block's inverse transforms run on the host."""
     if mesh is None:
         mesh = block_mesh()
-    r = CompressedReader(blob, device=mesh[0],
-                         decode_sinks={key: lambda e: flush(e, mesh)},
-                         sink_window=MAX_BLOCK_ID)
-    return r.read_all()
+
+    def batch(entries):
+        with trace.span("entropy.batch", blocks=len(entries)):
+            flush(entries, mesh)
+
+    with trace.span("call.decompress", bytes_in=len(blob)) as sp:
+        r = CompressedReader(blob, device=mesh[0],
+                             decode_sinks={key: batch},
+                             sink_window=MAX_BLOCK_ID)
+        out = r.read_all()
+        if sp:
+            sp.set(bytes=len(out), blocks=r._blocks_decoded)
+        return out
 
 
 def compress_l2_mesh(data: bytes, block_size: int, mesh=None) -> bytes:

@@ -164,9 +164,10 @@ def _new_token(ctx: Context, tid: int):
 def new_transform(ctx: Context, ttype: int) -> TransformSequence:
     """Build the stage sequence from a 48-bit packed descriptor
     (reference TransformFactory::newTransform, :207-222)."""
-    transforms = []
+    transforms, names = [], []
     for i in range(8):
         tid = (ttype >> (MAX_SHIFT - ONE_SHIFT * i)) & MASK
         if tid != NONE_TYPE or i == 0:
             transforms.append(_new_token(ctx, tid))
-    return TransformSequence(transforms)
+            names.append(_ID_TO_NAME[TransformType(tid)].lower())
+    return TransformSequence(transforms, names)

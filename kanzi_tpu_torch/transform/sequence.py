@@ -3,7 +3,10 @@
 Mirrors TransformSequence<T> (src/transform/TransformSequence.hpp:88-247):
 up to 8 stages run in order; a stage whose forward fails is recorded in an
 8-bit skip mask (bit (7-i) CLEAR means stage i ran; SKIP_MASK=0xFF means
-nothing ran). The inverse runs un-skipped stages in reverse.
+nothing ran). The inverse runs un-skipped stages in reverse. Each stage's
+forward, and each inverse that runs, is a span (core/trace.py):
+transform.<stage>.forward or .inverse, <stage> the factory's name in lower
+case, its kept attribute False where the stage's output was thrown away.
 """
 
 from __future__ import annotations
@@ -12,16 +15,19 @@ from typing import List, Optional
 
 import numpy as np
 
+from kanzi_tpu_torch.core import trace
 from kanzi_tpu_torch.transform.base import ByteTransform, as_u8
 
 SKIP_MASK = 0xFF
 
 
 class TransformSequence:
-    def __init__(self, transforms: List[ByteTransform]):
+    def __init__(self, transforms: List[ByteTransform], names: List[str]):
+        """names: each stage's name in its spans."""
         if not 1 <= len(transforms) <= 8:
             raise ValueError("1..8 transforms required")
         self.transforms = transforms
+        self.names = names
         self.skip_flags = SKIP_MASK
 
     def __len__(self) -> int:
@@ -53,11 +59,18 @@ class TransformSequence:
         orig_cap_out = max(output_capacity, required)
         caps = [max(input_capacity, len(data)), orig_cap_out]
         swaps = 0
+        ran = []                     # the spans of the stages that ran
         for i, t in enumerate(self.transforms):
             if caps[1] < required:
                 caps[1] = required  # fresh requiredSize buffer
             t.output_capacity = caps[1]
-            out = t.forward(data)
+            with trace.span("transform." + self.names[i] + ".forward",
+                            bytes_in=len(data)) as sp:
+                out = t.forward(data)
+                if sp:
+                    sp.set(bytes_out=0 if out is None else len(out),
+                           kept=out is not None)
+                    ran.append(sp)
             if out is None:
                 continue  # stage skipped, flag bit stays set
             self.skip_flags &= ~(1 << (7 - i)) & 0xFF
@@ -66,7 +79,18 @@ class TransformSequence:
             swaps += 1
         if (swaps & 1) == 0 and len(data) > orig_cap_out:
             self.skip_flags = SKIP_MASK
+            for sp in ran:           # every stage's output thrown away
+                sp.set(kept=False)
             return as_u8(src)
+        return data
+
+    def _inverse(self, i: int, data: np.ndarray) -> np.ndarray:
+        """Stage i's inverse, in its span."""
+        with trace.span("transform." + self.names[i] + ".inverse",
+                        bytes_in=len(data), kept=True) as sp:
+            data = self.transforms[i].inverse(data)
+            if sp:
+                sp.set(bytes_out=len(data))
         return data
 
     def inverse(self, src: np.ndarray) -> np.ndarray:
@@ -76,7 +100,7 @@ class TransformSequence:
         for i in range(len(self.transforms) - 1, -1, -1):
             if self.skip_flags & (1 << (7 - i)):
                 continue
-            data = self.transforms[i].inverse(data)
+            data = self._inverse(i, data)
         return data
 
     def inverse_into(self, src: np.ndarray, out: np.ndarray):
@@ -94,14 +118,17 @@ class TransformSequence:
         active = [i for i in range(len(self.transforms))
                   if not (self.skip_flags & (1 << (7 - i)))]
         for i in reversed(active[1:]):
-            data = self.transforms[i].inverse(data)
-        last = self.transforms[active[0]]
-        fn = getattr(last, "inverse_into", None)
+            data = self._inverse(i, data)
+        fn = getattr(self.transforms[active[0]], "inverse_into", None)
         if fn is not None:
-            n = fn(data, out)
+            with trace.span("transform." + self.names[active[0]] + ".inverse",
+                            bytes_in=len(data), kept=True) as sp:
+                n = fn(data, out)
+                if sp:
+                    sp.set(bytes_out=n or 0)
             if n is not None:
                 return n
-        data = last.inverse(data)
+        data = self._inverse(active[0], data)
         if data.size > out.size:
             return None
         out[:data.size] = data
