@@ -220,7 +220,10 @@ change, change, parent in one call. ``chip_smoke.py --chains
 mesh chains alone, with kanzi_tpu_torch imported from TREE (default this checkout)
 and the corpus made from this checkout: two trees' chain rates compared
 on one corpus in one call. ``chip_smoke.py --corrupt`` runs phases 1-3
-and 9d alone, ``chip_smoke.py --capi`` phases 1-3 and 9e alone.)
+and 9d alone, ``chip_smoke.py --capi`` phases 1-3 and 9e alone.
+``chip_smoke.py --bwt`` runs phase 1 and times the BWT forward's two
+routes, native SA-IS and the card's suffix array, by block size: the
+crossover behind transform/bwt.py's BWT_DEVICE_MIN_BLOCK.)
 """
 
 import cProfile
@@ -2367,6 +2370,84 @@ def report_kernels(kres: dict) -> None:
             fail(f"{k} differs from its plain version")
 
 
+BWT_ROUTE_SIZES = (4 << 10, 16 << 10, 32 << 10, 64 << 10, 128 << 10,
+                   256 << 10, 1 * MiB, 4 * MiB, 16 * MiB)
+
+
+def time_bwt_route(dev) -> None:
+    """--bwt: the BWT forward's two routes (transform/bwt.py bwt_forward)
+    on the bytes the level-7 chain's BWT gets from the benchmark's enwik8
+    stand-in (gpubench/corpus.py, 32 MiB through LZP+TEXT+UTF in 16 MiB
+    blocks), cut to each of BWT_ROUTE_SIZES: native SA-IS and the card's
+    suffix array in turns (medians of 9 below 1 MiB, 5 below 16 MiB and
+    3 there, after an untimed call each), bytes, the 8 primary indexes
+    and the byte counters checked, and the card path's peak memory above
+    what was allocated before it."""
+    import kanzi_tpu_torch.ops as ops
+    from gpubench import corpus
+    from kanzi_tpu_torch.core.context import Context
+    from kanzi_tpu_torch.transform import bwt as tbwt
+    from kanzi_tpu_torch.transform.factory import (new_transform,
+                                                   transform_name_to_type)
+    raw = corpus.gen_wiki(corpus.member_rng(2147490001, 0), 32 * MiB)
+    post = []
+    for pos in range(0, raw.size, 16 * MiB):
+        blk = raw[pos:pos + 16 * MiB]
+        ctx = Context()
+        ctx.put("blockSize", blk.size)
+        ctx.put("size", blk.size)
+        post.append(new_transform(ctx, transform_name_to_type(
+            "LZP+TEXT+UTF")).forward(blk))
+    post = np.concatenate(post)
+    log(f"bwt route: {raw.size} wiki bytes -> {post.size} after "
+        f"LZP+TEXT+UTF; floor {tbwt.BWT_DEVICE_MIN_BLOCK} B, "
+        f"{tbwt.BWT_DEVICE_PEAK_PER_BYTE} B of peak a byte")
+
+    def route(floor):
+        def fn(b):
+            tbwt.BWT_DEVICE_MIN_BLOCK = floor
+            return tbwt.bwt_forward(b, dev)
+        return fn
+
+    floor = tbwt.BWT_DEVICE_MIN_BLOCK
+    host, card = route(1 << 40), route(1)
+    try:
+        for n in BWT_ROUTE_SIZES:
+            block = np.ascontiguousarray(post[:n])
+            ops.reset_counters()
+            want, got = host(block), card(block)
+            if not (np.array_equal(want[0], got[0])
+                    and list(want[1]) == list(got[1])):
+                fail(f"bwt route: the card's BWT of {n} B differs from "
+                     "native SA-IS")
+            if (ops.COUNTERS.get("bwt_forward_host_bytes"),
+                    ops.COUNTERS.get("bwt_forward_device_bytes")) != (n, n):
+                fail(f"bwt route: counters {ops.COUNTERS} after one "
+                     f"forward of {n} B on each side")
+            times = {"native": [], "card": []}
+            turns = 9 if n < 1 * MiB else 5 if n < 16 * MiB else 3
+            for _ in range(turns):
+                for k, fn in (("native", host), ("card", card)):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    fn(block)
+                    times[k].append(time.perf_counter() - t0)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            card(block)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            log(f"bwt route {n} B: native {med['native'] * 1e3:.3f} ms, "
+                f"card {med['card'] * 1e3:.3f} ms "
+                f"({med['native'] / med['card']:.2f}x), every run "
+                f"{[round(x * 1e3, 3) for x in times['native']]} / "
+                f"{[round(x * 1e3, 3) for x in times['card']]} ms; "
+                f"peak {peak} B ({peak / n:.1f} a byte)")
+    finally:
+        tbwt.BWT_DEVICE_MIN_BLOCK = floor
+
+
 def time_chains(corpus, pp, timed, rate) -> None:
     """--chains: the level-2, level-3 and level-5 mesh chains on the
     corpus at 4 MiB blocks, compress then decompress, 3 runs after an untimed one,
@@ -2669,7 +2750,8 @@ def run(workers: dict, mode: str) -> None:
     ("kernels"), for H-J only ("decoders"), for I and J only ("cm"); 1-3
     and 5 ("containers"); 1-3, phase 4's K, 9b and 9c ("lz"); 1-3 and
     the l2 and l3 mesh chains' times ("chains"); 1-3 and K's times
-    ("lz_time"); 1-3 and 9d ("corrupt"); 1-3 and 9e ("capi")."""
+    ("lz_time"); 1-3 and 9d ("corrupt"); 1-3 and 9e ("capi"); 1 and the
+    BWT forward's routes ("bwt")."""
     import kanzi_tpu_torch
     import kanzi_tpu_torch.ops as ops
     from kanzi_tpu_torch.app.cli import LEVEL_TABLE
@@ -2691,6 +2773,9 @@ def run(workers: dict, mode: str) -> None:
     log(smi.splitlines()[0])
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    if mode == "bwt":
+        time_bwt_route(torch.device("cuda", 0))
+        return
 
     # 2. build
     t0 = time.perf_counter()
@@ -2913,7 +2998,7 @@ def run(workers: dict, mode: str) -> None:
             (3, [], ("huff_code_tables", "huff_pack", "huff_decode",
                      *l3_lz)),
             (6, ["-l", "6", "-b", "256k"], ("fpaq_encode",))):
-        mib = {}
+        mib, bwt_bytes = {}, {}
         for where in ("card", "host"):
             knz, dec = work / f"l{level}_{where}.knz", work / f"l{level}.out"
             if where == "host":
@@ -2925,6 +3010,9 @@ def run(workers: dict, mode: str) -> None:
             finally:
                 ops.enable()
             counts = dict(ops.COUNTERS)
+            # the BWT stage's input bytes, on either side: the same bytes
+            bwt_bytes[where] = (counts.pop("bwt_forward_device_bytes", 0)
+                                + counts.pop("bwt_forward_host_bytes", 0))
             if dec.read_bytes() != data:
                 fail(f"level-{level} CLI round trip ({where}) differs from "
                      "the input")
@@ -2940,9 +3028,15 @@ def run(workers: dict, mode: str) -> None:
                     fail("the level-3 CLI launched the compaction B or "
                          "coded chunks on the host")
                 log(f"level {level} CLI ({' '.join(flags) or 'no -l'}) on "
-                    f"the card: launches {counts}")
-            elif counts:
-                fail(f"the host path launched {counts}")
+                    f"the card: launches {counts}; BWT input bytes on the "
+                    f"card {ops.COUNTERS.get('bwt_forward_device_bytes', 0)}"
+                    f", on the host "
+                    f"{ops.COUNTERS.get('bwt_forward_host_bytes', 0)}")
+            elif counts or ops.COUNTERS.get("bwt_forward_device_bytes"):
+                fail(f"the host path launched {dict(ops.COUNTERS)}")
+            elif bwt_bytes["host"] != bwt_bytes["card"]:
+                fail(f"the level-{level} CLI's BWT stage took {bwt_bytes} "
+                     "bytes on the card's path and on the host path")
         knz = work / f"l{level}_card.knz"
         if knz.read_bytes() != (work / f"l{level}_host.knz").read_bytes():
             fail(f"level-{level} CLI output differs from the host path's")
@@ -3038,5 +3132,5 @@ if __name__ == "__main__":
         main({"--kernels": "kernels", "--containers": "containers",
               "--decoders": "decoders", "--cm": "cm", "--lz": "lz",
               "--hint": "hint", "--corrupt": "corrupt",
-              "--capi": "capi"}.get(
+              "--capi": "capi", "--bwt": "bwt"}.get(
             sys.argv[1] if sys.argv[1:] else "", "full"))

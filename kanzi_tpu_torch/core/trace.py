@@ -5,7 +5,9 @@ Counters (COUNTERS, count, reset_counters) say which path ran: a kernel
 wrapper bumps its kernel's key where it launches the kernel, and key +
 "_plain" where it takes the plain version for a CPU tensor. The device
 BWT and the device level-5 chain count the blocks they take
-("bwt_forward_device", "l5_{encode,decode}_device_blocks"), the level-6
+("bwt_forward_device", "l5_{encode,decode}_device_blocks"), the BWT
+stage the input bytes of each forward on a card and on the host
+("bwt_forward_device_bytes", "bwt_forward_host_bytes"), the level-6
 and level-7 mesh decodes the blocks they decode on the card
 ("l6_decode_device_blocks", "l7_decode_device_blocks"), the Huffman
 coder the full chunks it codes on the host beside the kernels

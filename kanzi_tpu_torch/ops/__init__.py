@@ -24,6 +24,7 @@ Layout:
 """
 
 import os as _os
+from typing import Optional
 
 import torch
 
@@ -55,3 +56,11 @@ def device() -> torch.device:
                            "plain PyTorch versions)")
     return torch.device("cuda", torch.cuda.current_device())
 
+
+def block_device(ctx) -> Optional[torch.device]:
+    """The device of a block a transform codes: the context's "device",
+    else the CUDA device where there is one, else None (the host)."""
+    dev = ctx.get("device")
+    if dev is not None:
+        return torch.device(dev)
+    return device() if torch.cuda.is_available() else None

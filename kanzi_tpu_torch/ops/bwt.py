@@ -8,7 +8,12 @@ kanzi_tpu_torch/transform/divsufsort.py). These are XLA stages in the JAX
 package, with no Pallas kernel, so torch ops are their port. Every
 function takes a batch of same-length blocks, [B, n] uint8, so that the
 device level-5 chain (kanzi_tpu_torch/parallel/pipeline.py) runs all of
-its blocks in one pass.
+its binary blocks in one pass. Every other BWT forward (kanzi_tpu_torch/
+transform/bwt.py bwt_forward: the host chains, the level-5 chain's text
+and tail blocks) runs bwt_forward here, one block at a time, on a card
+from the block size at which it beats native SA-IS (BWT_DEVICE_MIN_BLOCK
+there) where its peak fits, and native SA-IS otherwise; the inverse
+stays native outside the level-5 chain.
 
 Forward, prefix doubling with one sort a round:
 
@@ -40,13 +45,12 @@ import kanzi_tpu_torch.ops as _ops
 from kanzi_tpu_torch.ops.ans import _host_tensor
 
 
-def _rerank(key: torch.Tensor):
-    """key [B, n] int64 (below 2^(63 - bits of B)) -> (sa [B, n] the
-    positions in key order, rank [B, n] the dense rank of each position's
-    key within its block, all distinct: bool, one sync)."""
+def _rerank(key: torch.Tensor, kb: int):
+    """key [B, n] int64 below 2^kb -> (sa [B, n] the positions in key
+    order, rank [B, n] the dense rank of each position's key within its
+    block, all distinct: bool, the round's one sync)."""
     b, n = key.shape
     dev = key.device
-    kb = int(key.max()).bit_length() if key.numel() else 0
     if kb + max(b - 1, 1).bit_length() > 62:
         raise ValueError(f"suffix array: {b} blocks of {n} bytes do not fit "
                          "one 63-bit sort key")
@@ -68,13 +72,15 @@ def _suffix_array_impl(s: torch.Tensor):
     x = s.long()
     b1 = torch.zeros_like(x)
     b1[:, :-1] = x[:, 1:] + 1                    # 0: second byte absent
-    sa, rank, done = _rerank(x << 9 | b1)
+    sa, rank, done = _rerank(x << 9 | b1, 17)      # 255 << 9 | 256 < 2^17
+    # a rank is at most n - 1, rank2 at most n
+    kb = (n - 1).bit_length() + n.bit_length()
     k = 2
     while not done:
         rank2 = torch.zeros_like(rank)
         if k < n:
             rank2[:, :n - k] = rank[:, k:] + 1
-        sa, rank, done = _rerank(rank << n.bit_length() | rank2)
+        sa, rank, done = _rerank(rank << n.bit_length() | rank2, kb)
         k *= 2
     return sa, rank
 

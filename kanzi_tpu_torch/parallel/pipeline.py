@@ -78,8 +78,9 @@ from kanzi_tpu_torch.transform.factory import (new_transform,
 
 CHAIN = "TEXT+UTF+BWT+RANK+ZRLT"
 ENTROPY = "ANS0"
-# input bytes of one pass on the card: its peak memory is ~30x this (the
-# suffix array's int64 keys, ranks and sort buffers)
+# input bytes of one pass on the card: its peak memory is ~100x this (the
+# suffix array's int64 keys, ranks and sort buffers: 97 bytes a byte for
+# one block, PERF.md)
 GROUP_BYTES = 64 << 20
 
 

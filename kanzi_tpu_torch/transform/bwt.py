@@ -13,11 +13,15 @@ pointer-doubling chain walk.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
+import kanzi_tpu_torch.ops as ops
 from kanzi_tpu_torch.core.stats import log2
+from kanzi_tpu_torch.ops import block_device
 from kanzi_tpu_torch.transform.base import ByteTransform, as_u8
 from kanzi_tpu_torch.transform.divsufsort import compute_bwt
 from kanzi_tpu_torch.utils.bitpack import chain_walk
@@ -25,35 +29,81 @@ from kanzi_tpu_torch.utils.bitpack import chain_walk
 MAX_BLOCK_SIZE = 1024 * 1024 * 1024
 BLOCK_SIZE_THRESHOLD1 = 256
 
+# The bytes a block from which its BWT forward runs on a card (the device
+# suffix array, ops/bwt.py) in place of native SA-IS, and that path's
+# peak memory on the card a byte of the block. Set by chip_smoke.py
+# --bwt on an H100 (PERF.md) over the level-7 chain's BWT input: the
+# card's path costs ~4.4 ms from 4 KiB to 64 KiB (its prefix-doubling
+# rounds' fixed cost) and native SA-IS ~0.07 ms a KiB, so native wins at
+# 32 KiB (0.64x) and the card from 64 KiB (1.21x), 3.6x at 256 KiB and
+# 59x at 16 MiB; the peak reads 97.2-98.3 bytes a byte at 4 KiB to
+# 16 MiB, rounded up here for the caching allocator's rounding.
+BWT_DEVICE_MIN_BLOCK = 1 << 16
+BWT_DEVICE_PEAK_PER_BYTE = 128
+
 
 def get_bwt_chunks(size: int) -> int:
     return 1 if size < BLOCK_SIZE_THRESHOLD1 else 8
 
 
+# Held by a BWT forward on a card from its memory check to the end of
+# its suffix array: a writer's jobs run the blocks' transforms on
+# threads, and two peaks that each fit the card's free memory need not
+# fit together. The card's stream runs them one after another anyway.
+_CARD_LOCK = threading.Lock()
+
+
+def _bwt_on_device(dev, n: int) -> bool:
+    """True where a block of n bytes may take the card's suffix array:
+    ops enabled, a CUDA device, at least BWT_DEVICE_MIN_BLOCK bytes.
+    Whether its peak fits (_peak_fits) is asked under _CARD_LOCK."""
+    return (ops.ENABLED and dev is not None and dev.type == "cuda"
+            and n >= BWT_DEVICE_MIN_BLOCK)
+
+
+def _peak_fits(dev, n: int) -> bool:
+    """True where the card path's peak for n bytes (BWT_DEVICE_PEAK_PER_BYTE
+    a byte) is within the memory the card has free, the caching
+    allocator's idle part counted."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return n * BWT_DEVICE_PEAK_PER_BYTE <= free
+
+
 def bwt_forward(src: np.ndarray, device=None):
-    """Returns (bwt bytes, indexes). Uses the native SA-IS library, else,
-    from 4096 bytes on, the device suffix array (kanzi_tpu_torch/ops/
-    bwt.py) on ``device`` (default: the card), else the host suffix
-    array; the suffix array is unique, so the output is the same."""
+    """Returns (bwt bytes, indexes). On a card (``device``, a CUDA
+    device; None: the host), from BWT_DEVICE_MIN_BLOCK bytes on where the
+    path's peak fits, the device suffix array (kanzi_tpu_torch/ops/
+    bwt.py), one block at a time; else native SA-IS; without it, from
+    4096 bytes on, the device suffix array on ``device`` (the CPU's torch
+    ops there); else the host suffix array. The suffix array is unique,
+    so the output is the same on every path. Counts the block's bytes
+    under "bwt_forward_device_bytes" where it ran on a card, else
+    "bwt_forward_host_bytes"."""
     n = len(src)
     if n > MAX_BLOCK_SIZE:
         raise ValueError("BWT: block too large")
+    from kanzi_tpu_torch.ops import bwt as dbwt
     from kanzi_tpu_torch.utils import native as _native
+    src = np.asarray(src, np.uint8)
+    dev = None if device is None else torch.device(device)
+    chunks = get_bwt_chunks(n)
+    if n > 1 and _bwt_on_device(dev, n):
+        with _CARD_LOCK:
+            if _peak_fits(dev, n):
+                ops.count("bwt_forward_device_bytes", n)
+                out, idx = dbwt.bwt_forward(src, chunks, dev)
+                return out, list(idx)
     if n > 1 and _native.sais_available():
-        # native SA-IS is the fastest host path; the device level-5 chain
-        # (parallel/pipeline.py) runs the device suffix array
-        out, idx = _native.bwt_forward(np.asarray(src, np.uint8),
-                                       get_bwt_chunks(n))
-        return out, idx
-    import kanzi_tpu_torch.ops as ops
-    if n >= 4096 and ops.ENABLED:
-        from kanzi_tpu_torch.ops import bwt as dbwt
-        out, idx = dbwt.bwt_forward(np.asarray(src, np.uint8),
-                                    get_bwt_chunks(n),
-                                    device if device is not None
-                                    else ops.device())
+        ops.count("bwt_forward_host_bytes", n)
+        return _native.bwt_forward(src, chunks)
+    if n >= 4096 and ops.ENABLED and dev is not None:
+        ops.count("bwt_forward_device_bytes" if dev.type == "cuda"
+                  else "bwt_forward_host_bytes", n)
+        out, idx = dbwt.bwt_forward(src, chunks, dev)
         return out, list(idx)
-    return compute_bwt(src, get_bwt_chunks(n))
+    ops.count("bwt_forward_host_bytes", n)
+    return compute_bwt(src, chunks)
 
 
 def bwt_inverse(bwt: np.ndarray, indexes) -> np.ndarray:
@@ -112,7 +162,7 @@ class BWTBlockCodec(ByteTransform):
             # BWT::forward copies single bytes; primary indexes stay 0
             out_bwt, indexes = src.copy(), [0]
         else:
-            out_bwt, indexes = bwt_forward(src, self.ctx.get("device"))
+            out_bwt, indexes = bwt_forward(src, block_device(self.ctx))
         mode = (log_nb_chunks << 2) | (p_index_size - 1)
         header = bytearray([mode])
         for i in range(chunks):

@@ -15,10 +15,10 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
 import kanzi_tpu_torch.ops as ops
 from kanzi_tpu_torch.core import stats
+from kanzi_tpu_torch.ops import block_device
 from kanzi_tpu_torch.transform.base import ByteTransform, as_u8
 
 HASH_SEED = 0x1E35A7BD
@@ -39,15 +39,6 @@ M64 = (1 << 64) - 1
 # at 1 and 4 MiB blocks and loses at 256 KiB; LZ loses at 4 MiB, where
 # the native parse's table fits the host's L2.
 LZ_HINT_MIN_BLOCK = {16: None, 19: 1 << 20}
-
-
-def block_device(ctx) -> Optional[torch.device]:
-    """The device of the block: the context's "device", else the CUDA
-    device where there is one, else None (the host)."""
-    dev = ctx.get("device")
-    if dev is not None:
-        return torch.device(dev)
-    return ops.device() if torch.cuda.is_available() else None
 
 
 def _lz_on_device(dev, count: int, hash_log: int) -> bool:

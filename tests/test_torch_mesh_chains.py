@@ -62,7 +62,8 @@ def _host_writers(data, chain, entropy, n):
 
 LEVELS = {
     # level: (compress, decompress, chain, entropy, block size, blocks,
-    #         the plain versions' launches each way)
+    #         the plain versions' launches each way; on compress, the
+    #         BWT stage's input bytes, on the host from a CPU mesh)
     "l2": (tpp.compress_l2_mesh, tpp.decompress_l2_mesh, tpp.CHAIN_L2,
            tpp.ENTROPY_L2, 16384, 5,
            {"huff_code_tables_plain": 1, "huff_pack_plain": 1},
@@ -73,12 +74,12 @@ LEVELS = {
            {"huff_decode_plain": 1}),
     "l6": (tpp.compress_l6_mesh, tpp.decompress_l6_mesh, tpp.CHAIN_L6,
            tpp.ENTROPY_L6, 8192, 4,
-           {"fpaq_encode_plain": 1},
+           {"fpaq_encode_plain": 1, "bwt_forward_host_bytes": 30586},
            {"fpaq_decode_plain": 1, "l6_decode_device_blocks": 5}),
     # 4 KiB blocks, 3 of them, as tests/test_mesh_chains.py has for l7
     "l7": (tpp.compress_l7_mesh, tpp.decompress_l7_mesh, tpp.CHAIN_L7,
            tpp.ENTROPY_L7, 4096, 3,
-           {"cm_encode_plain": 1},
+           {"cm_encode_plain": 1, "bwt_forward_host_bytes": 8309},
            {"cm_decode_plain": 1, "l7_decode_device_blocks": 4}),
 }
 
