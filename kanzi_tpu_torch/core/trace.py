@@ -8,8 +8,11 @@ BWT and the device level-5 chain count the blocks they take
 ("bwt_forward_device", "l5_{encode,decode}_device_blocks"), the BWT
 stage the input bytes of each forward on a card and on the host
 ("bwt_forward_device_bytes", "bwt_forward_host_bytes"), the level-6
-and level-7 mesh decodes the blocks they decode on the card
-("l6_decode_device_blocks", "l7_decode_device_blocks"), the Huffman
+mesh encode and the level-6 and level-7 mesh decodes the blocks they
+code on the card ("l6_encode_device_blocks", "l6_decode_device_blocks",
+"l7_decode_device_blocks"), the FPAQ encode batch its streams and those
+it launches a second time ("fpaq_encode_streams",
+"fpaq_encode_relaunch_streams"), the Huffman
 coder the full chunks it codes on the host beside the kernels
 ("huff_host_chunks"), the level-7 mesh chain the CM blocks it leaves to
 the host coder ("cm_host_blocks"), the LZ match pass each pass on the

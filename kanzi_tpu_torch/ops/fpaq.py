@@ -46,6 +46,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import kanzi_tpu_torch.ops as _ops
+from kanzi_tpu_torch.core import trace
 from kanzi_tpu_torch.ops.ans import (_check, _host_tensor, _launch, _on_cpu,
                                      _to_device, _to_numpy, _u32_bits)
 
@@ -173,8 +175,11 @@ def fpaq_encode_batch(streams: np.ndarray, lens: np.ndarray,
     encoder's _buf), low56[i] = its final low | MASK_0_24 (the dispose
     value). kanzi_tpu.ops.fpaq.fpaq_encode_batch's contract without its
     overflow list: every stream is coded on the device (those that
-    outgrow a REGION_W region in a second launch). chunk_bytes = FPAQ
-    chunk size (CHUNK_B on the wire; tests take smaller ones)."""
+    outgrow a REGION_W region in a second launch, its copies included
+    in the span entropy.fpaq.relaunch: streams, bytes). chunk_bytes =
+    FPAQ chunk size (CHUNK_B on the wire; tests take smaller ones).
+    Counts the streams as fpaq_encode_streams and those of the second
+    launch as fpaq_encode_relaunch_streams."""
     if chunk_bytes % WIN_B:
         raise ValueError(f"chunk_bytes {chunk_bytes} is not a multiple of "
                          f"{WIN_B}")
@@ -187,6 +192,7 @@ def fpaq_encode_batch(streams: np.ndarray, lens: np.ndarray,
     data = torch.from_numpy(sp).to(dev)
     lens_d = _host_tensor(lens, np.int64).to(dev)
     cw = chunk_bytes // WIN_B
+    _ops.count("fpaq_encode_streams", b)
     words, win_cnt, win_low = fpaq_encode(data, lens_d, cw, n_win * REGION_W)
     win_words = win_cnt.cpu().numpy().astype(np.int64)
     win_low = win_low.cpu().numpy().astype(np.uint64)
@@ -197,10 +203,13 @@ def fpaq_encode_batch(streams: np.ndarray, lens: np.ndarray,
             if fits[i] else None for i in range(b)]
     over = np.nonzero(~fits)[0]
     if len(over):
-        sel = torch.from_numpy(over).to(dev)
-        words, _, _ = fpaq_encode(data[sel], lens_d[sel], cw,
-                                  n_win * MAX_REGION_W)
-        words = words[:, :int(total[over].max())].cpu().numpy()
+        _ops.count("fpaq_encode_relaunch_streams", len(over))
+        with trace.span("entropy.fpaq.relaunch", streams=len(over),
+                        bytes=int(np.asarray(lens)[over].sum())):
+            sel = torch.from_numpy(over).to(dev)
+            words, _, _ = fpaq_encode(data[sel], lens_d[sel], cw,
+                                      n_win * MAX_REGION_W)
+            words = words[:, :int(total[over].max())].cpu().numpy()
         for j, i in enumerate(over):
             bufs[i] = words[j, :total[i]].view(np.uint32).astype(
                 ">u4").tobytes()

@@ -617,9 +617,11 @@ def prepare_huffman_batch_mesh(states: list, mesh) -> None:
 def prepare_fpaq_batch_mesh(states: list, mesh) -> None:
     """compressed_stream.prepare_fpaq_batch over the mesh: every FPAQ
     block's bytes one stream, all in one encode call a shard (kernel G),
-    with no gate on their number."""
+    with no gate on their number. Counts the blocks it encodes on the
+    card as l6_encode_device_blocks."""
     elig = _fpaq_blocks(states)
     if elig:
+        _ops.count("l6_encode_device_blocks", len(elig))
         lens = np.array([st["post_len"] for st in elig], np.int64)
         _stash_fpaq(elig, lens, shard_fpaq_encode(
             _fpaq_streams(elig, lens), lens, mesh, FPAQ_CHUNK))

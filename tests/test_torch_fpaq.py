@@ -109,7 +109,8 @@ def test_encode_batch_matches_jax_model(jf):
     streams = _streams(3, lens)
     tops.reset_counters()
     got = tf.fpaq_encode_batch(streams, lens, CH, "cpu")
-    assert tops.COUNTERS == {"fpaq_encode_plain": 1}
+    assert tops.COUNTERS == {"fpaq_encode_plain": 1,
+                             "fpaq_encode_streams": 3}
     _assert_batch_equal(got, jf._encode_batch_np(streams, lens,
                                                  chunk_bytes=CH))
 
@@ -153,7 +154,8 @@ def test_fpaq_batch_byte_identical(fpaq_device):
             .tobytes() + bytes(3000))
     blob = kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
                                           block_size=4096, device="cpu")
-    assert tops.COUNTERS == {"fpaq_encode_plain": 1}, tops.COUNTERS
+    assert tops.COUNTERS == {"fpaq_encode_plain": 1,
+                             "fpaq_encode_streams": 3}, tops.COUNTERS
     kops.reset_counters()
     assert blob == kanzi_tpu.compress_bytes(data, "NONE", "FPAQ",
                                             block_size=4096)
@@ -227,14 +229,18 @@ def test_stream_over_its_region_is_relaunched(jf, fpaq_device, monkeypatch):
     monkeypatch.setattr(tf, "REGION_W", 4)
     tops.reset_counters()
     got = tf.fpaq_encode_batch(streams, lens, CH, "cpu")
-    assert tops.COUNTERS == {"fpaq_encode_plain": 2}
+    assert tops.COUNTERS == {"fpaq_encode_plain": 2,
+                             "fpaq_encode_streams": 2,
+                             "fpaq_encode_relaunch_streams": 2}
     assert (got[2] > 4).any()
     _assert_batch_equal(got, ref)
     data = streams[0, :lens[0]].tobytes()
     tops.reset_counters()
     blob = kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
                                           block_size=4096, device="cpu")
-    assert tops.COUNTERS == {"fpaq_encode_plain": 2}
+    assert tops.COUNTERS == {"fpaq_encode_plain": 2,
+                             "fpaq_encode_streams": 1,
+                             "fpaq_encode_relaunch_streams": 1}
     tops.disable()
     assert blob == kanzi_tpu_torch.compress_bytes(data, "NONE", "FPAQ",
                                                   block_size=4096)

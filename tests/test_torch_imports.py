@@ -60,7 +60,8 @@ cs._fpaq_on_device = lambda dev, lens: True
 rng = np.random.default_rng(1)
 data = b"fpaq " * 600 + rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
 blob = k.compress_bytes(data, "NONE", "FPAQ", block_size=4096, device="cpu")
-assert ops.COUNTERS == {"fpaq_encode_plain": 1}, ops.COUNTERS
+assert ops.COUNTERS == {"fpaq_encode_plain": 1,
+                       "fpaq_encode_streams": 2}, ops.COUNTERS
 assert k.decompress_bytes(blob, device="cpu") == data
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu"))

@@ -74,7 +74,8 @@ LEVELS = {
            {"huff_decode_plain": 1}),
     "l6": (tpp.compress_l6_mesh, tpp.decompress_l6_mesh, tpp.CHAIN_L6,
            tpp.ENTROPY_L6, 8192, 4,
-           {"fpaq_encode_plain": 1, "bwt_forward_host_bytes": 30586},
+           {"fpaq_encode_plain": 1, "bwt_forward_host_bytes": 30586,
+            "l6_encode_device_blocks": 5, "fpaq_encode_streams": 5},
            {"fpaq_decode_plain": 1, "l6_decode_device_blocks": 5}),
     # 4 KiB blocks, 3 of them, as tests/test_mesh_chains.py has for l7
     "l7": (tpp.compress_l7_mesh, tpp.decompress_l7_mesh, tpp.CHAIN_L7,
